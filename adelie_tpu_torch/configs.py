@@ -27,6 +27,11 @@ class Configs:
     # Total CD sweeps one lambda chunk may spend before it freezes and
     # returns to the host, which resumes at the next unaccepted lambda.
     chunk_sweep_budget: int = 1_000_000
+    # Packed SNP bytes above which matrix.snp_unphased(streaming="auto")
+    # asks for the host-streamed matrix: half the H100's 80 GB, as the JAX
+    # package's 8 GiB is half a TPU v5e's 16 GB.  The rest holds the screen
+    # block, the Gram and the kernels' working vectors.
+    snp_hbm_budget: int = 40 * 10**9
 
 
 _default = Configs()

@@ -10,12 +10,13 @@ import numpy as np
 import torch
 
 from ..configs import matmul_precision
+from ..device import resolve_device
 from ..utils import TORCH_DTYPE
 from .base import MatrixNaiveBase
 
 
 class MatrixNaiveDense(MatrixNaiveBase):
-    def __init__(self, mat, *, dtype=None, device="cpu"):
+    def __init__(self, mat, *, dtype=None, device=None):
         mat = np.asarray(mat)
         if dtype is None:
             dtype = mat.dtype if mat.dtype in TORCH_DTYPE else np.float32
@@ -24,9 +25,10 @@ class MatrixNaiveDense(MatrixNaiveBase):
             raise TypeError(f"dense matrices are float32 or float64, not "
                             f"{self.dtype}")
         self.torch_dtype = TORCH_DTYPE[self.dtype]
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._rows, self._cols = mat.shape
-        self._mat = torch.as_tensor(mat, dtype=self.torch_dtype, device=self.device)
+        self._mat = torch.as_tensor(mat, dtype=self.torch_dtype,
+                                    device=self.device)
 
     @property
     def mat(self):

@@ -20,7 +20,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys, adelie_tpu_torch; "
+    code = ("import sys, adelie_tpu_torch, adelie_tpu_torch.io; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'adelie_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -47,6 +47,33 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
     assert srcs, cmd
     assert all(s.parent == _build.CSRC_DIR and s.is_file() for s in srcs)
     assert _build.library_path().parent == REPO / "build" / "adelie_tpu_torch"
+
+
+def test_nvcc_command_names_both_kernel_sources():
+    cmd = _build.nvcc_command("/x/nvcc", Path("/tmp/out.so"))
+    names = sorted(Path(a).name for a in cmd if a.endswith(".cu"))
+    assert names == ["pin_kernels.cu", "snp_kernels.cu"]
+    assert "-fmad=false" in cmd
+
+
+def test_codec_build_command_and_place():
+    out = _build.snpio_library_path()
+    cmd = _build.cxx_command("/x/c++", out)
+    srcs = [a for a in cmd if a.endswith((".cpp", ".cc", ".cu"))]
+    assert srcs == [str(_build.CSRC_DIR / "snpio.cpp")]
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    assert out.parent == REPO / "build" / "adelie_tpu_torch"
+    assert out.name.startswith("snpio_") and out.suffix == ".so"
+
+
+def test_missing_host_compiler_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_snpio", None)
+    with pytest.raises(_build.KernelBuildError, match="C\\+\\+ compiler"):
+        _build.load_snpio()
+    assert not (tmp_path / "build").exists()
 
 
 def test_missing_nvcc_raises_and_does_not_fall_back(monkeypatch, tmp_path):
