@@ -7,8 +7,10 @@ kernels of ``solver/pin_kernels.py``, built from ``csrc/`` at the first CUDA
 call.  On CPU tensors the kernels' plain PyTorch twins run instead.  The
 port so far covers ``grpnet`` with a gaussian loss and groups of size 1 on
 a dense matrix or on a packed SNP matrix (``io``, ``matrix.snp_unphased``,
-``matrix.snp_phased_ancestry``), whose gradient is the decode-matmul
-kernel of ``matrix/snp_kernels.py``; ROADMAP.md lists what comes next.
+``matrix.snp_phased_ancestry``), in device memory or, for a panel larger
+than the card, streamed from host memory (``snp_unphased(streaming=True)``);
+its gradients are the decode-matmul kernels of ``matrix/snp_kernels.py``.
+ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -157,6 +157,12 @@ def _bind(lib) -> None:
             f = getattr(lib, f"adelie_{name}_{suffix}")
             f.argtypes = [ptr] * n_ptr + [c_int64, c_int64, ptr]
             f.restype = c_int
+        # (packed, ut_pad, impute, out, p, nb, C, Cp, stream)
+        f = getattr(lib, f"adelie_snp_mul_many_{suffix}")
+        f.argtypes = [ptr] * 4 + [c_int64] * 4 + [ptr]
+        f.restype = c_int
+    lib.adelie_snp_mul_many_cols.argtypes = [c_int64]
+    lib.adelie_snp_mul_many_cols.restype = c_int64
     lib.adelie_cuda_error_string.argtypes = [c_int]
     lib.adelie_cuda_error_string.restype = ctypes.c_char_p
 

@@ -32,6 +32,14 @@ class Configs:
     # package's 8 GiB is half a TPU v5e's 16 GB.  The rest holds the screen
     # block, the Gram and the kernels' working vectors.
     snp_hbm_budget: int = 40 * 10**9
+    # On a streamed-KKT chunk failure, add to the screen set every group
+    # that violates KKT at any converged lambda of the chunk, not only at
+    # the first failure (solver/streamed.py): the chunk's one pass over
+    # the panel already paid for those gradients, and each retry it saves
+    # is another pass.  The solutions stay KKT-certified, but the screen
+    # trajectory, and so the iterate within solver tolerance, can differ
+    # from the in-device driver's; False reproduces that driver's path.
+    stream_speculative_union: bool = True
 
 
 _default = Configs()

@@ -1,12 +1,15 @@
-"""Matrix factories mirroring ``adelie_tpu.matrix``: dense and packed SNP."""
+"""Matrix factories mirroring ``adelie_tpu.matrix``: dense, packed SNP in
+device memory, and packed SNP streamed from host memory."""
 
 from ..configs import configs
 from ._snp import MatrixNaiveSNPPhasedAncestry, MatrixNaiveSNPUnphased
+from ._snp_stream import MatrixNaiveSNPUnphasedStreamed
 from .base import MatrixNaiveBase
 from .dense import MatrixNaiveDense
 
 __all__ = ["MatrixNaiveBase", "MatrixNaiveDense",
-           "MatrixNaiveSNPPhasedAncestry", "MatrixNaiveSNPUnphased", "dense",
+           "MatrixNaiveSNPPhasedAncestry", "MatrixNaiveSNPUnphased",
+           "MatrixNaiveSNPUnphasedStreamed", "dense",
            "snp_phased_ancestry", "snp_unphased"]
 
 
@@ -20,30 +23,33 @@ def dense(mat, *, method: str = "naive", dtype=None, device=None):
     return MatrixNaiveDense(mat, dtype=dtype, device=device)
 
 
-def snp_unphased(io, *, dtype=None, device=None, streaming="auto"):
+def snp_unphased(io, *, n_threads: int = 1, dtype=None, device=None,
+                 streaming="auto", tile_snps: int = 65536):
     """Packed SNP unphased matrix on ``device`` (reference matrix.py:1245).
 
     ``io``: an ``io.snp_unphased`` or ``io.snp_bed`` handler, or anything
     with ``packed`` (p, ceil(n/4)) uint8, ``impute`` (p,), ``rows()`` and
-    ``snps()``.  ``dtype`` defaults to float64.  The packed bytes live on
-    the device; ``streaming=True``, or ``"auto"`` with more packed bytes
-    than ``configs.snp_hbm_budget``, asks for the host-streamed matrix,
-    which is not ported yet (ROADMAP.md queue 8) and raises."""
+    ``snps()``.  ``streaming=False`` puts the packed bytes on the device
+    (``dtype`` defaults to float64).  ``streaming=True``, or ``"auto"`` with
+    more packed bytes than ``configs.snp_hbm_budget``, keeps them in host
+    memory and streams tiles of ``tile_snps`` SNP rows through the device
+    for every full-matrix product (``dtype`` defaults to float32, as in the
+    JAX package).  ``n_threads`` is accepted for the JAX package's
+    signature and ignored."""
     if streaming == "auto":
         if hasattr(io, "_ensure"):
             io._ensure()
         packed_bytes = int(io.snps()) * ((int(io.rows()) + 3) // 4)
         streaming = packed_bytes > configs.snp_hbm_budget
     if streaming:
-        raise NotImplementedError(
-            "the host-streamed SNP matrix (and its kernel K5) is not ported "
-            "yet (ROADMAP.md queue 8); the packed bytes exceed "
-            "configs.snp_hbm_budget or streaming=True was asked"
-        )
+        return MatrixNaiveSNPUnphasedStreamed(io, dtype=dtype, device=device,
+                                              tile_snps=tile_snps)
     return MatrixNaiveSNPUnphased(io, dtype=dtype, device=device)
 
 
-def snp_phased_ancestry(io, *, dtype=None, device=None):
+def snp_phased_ancestry(io, *, n_threads: int = 1, dtype=None, device=None):
     """Phased calldata x local-ancestry matrix on ``device`` (reference
-    matrix.py:1189); ``io`` has ``packed``, ``rows()`` and ``cols()``."""
+    matrix.py:1189); ``io`` has ``packed``, ``rows()`` and ``cols()``.
+    ``n_threads`` is accepted for the JAX package's signature and
+    ignored."""
     return MatrixNaiveSNPPhasedAncestry(io, dtype=dtype, device=device)

@@ -1,8 +1,10 @@
 """Solver entry point: ``grpnet``, the single-response gaussian path.
 
-Counterpart of ``adelie_tpu/solver/__init__.py``.  GLMs other than the
-gaussian, multi-response, constrained and streamed inputs are later slices
-of ROADMAP.md and raise ``NotImplementedError``.
+Counterpart of ``adelie_tpu/solver/__init__.py``.  A matrix in device
+memory runs ``GaussianNaiveDriver``, a host-streamed SNP matrix
+``StreamedGaussianDriver``.  GLMs other than the gaussian, multi-response
+and constrained inputs are later slices of ROADMAP.md and raise
+``NotImplementedError``.
 """
 
 import traceback
@@ -17,6 +19,7 @@ from ..device import resolve_device
 from ..logger import logger
 from ..utils import types
 from .gaussian import GaussianNaiveDriver, GaussianNaiveState
+from .streamed import StreamedGaussianDriver
 
 __all__ = ["grpnet", "finalize_state"]
 
@@ -83,11 +86,9 @@ def grpnet(
     if constraints is not None and any(c is not None for c in constraints):
         raise NotImplementedError(
             "constraints are not ported yet (ROADMAP.md queue 7)")
-    if getattr(X, "is_streaming", False):
-        raise NotImplementedError(
-            "streamed matrices are not ported yet (ROADMAP.md queue 8)")
 
     X = _as_matrix(X, device)
+    streaming = getattr(X, "is_streaming", False)
     dev = X.device
     dtype = X.dtype
     tdtype = X.torch_dtype
@@ -183,8 +184,14 @@ def grpnet(
         y_var = float(weights @ (yc * yc))
         resid = yc
         resid_sum = float(weights @ resid)
-        X_means = X.mul(ones, weights)
-        grad = X.mul(resid, weights)
+        if streaming:
+            # one pass over the host-streamed bytes for both full-p setup
+            # products
+            both = X.mul_many(torch.stack([weights * ones, weights * resid]))
+            X_means, grad = both[:, 0].contiguous(), both[:, 1].contiguous()
+        else:
+            X_means = X.mul(ones, weights)
+            grad = X.mul(resid, weights)
         rsq = 0.0
     else:
         X_means = torch.as_tensor(warm_start.X_means, **like)
@@ -200,7 +207,8 @@ def grpnet(
         rsq=rsq, resid=resid, resid_sum=resid_sum, **common,
     )
     state.grad = grad
-    driver = GaussianNaiveDriver(state)
+    driver = (StreamedGaussianDriver if streaming
+              else GaussianNaiveDriver)(state)
 
     if warm_start is not None:
         # restore the KKT invariance quantities carried by the warm start

@@ -1,11 +1,16 @@
 """The per-lambda step of the gaussian path, and the lambda-chunk loop.
 
-Counterpart of ``adelie_tpu/solver/fused.py``.  The JAX package fuses a whole
-chunk of lambdas into one jitted ``lax.scan``; PyTorch runs eagerly, so the
-scan is a Python loop over ``gaussian_step`` with the same carry semantics:
-it advances through accepted lambdas and freezes at the first lambda that
-fails KKT or the pin solve, at the deviance early exit, or once the chunk's
-sweep budget is spent.
+Counterpart of ``adelie_tpu/solver/fused.py`` and of the optimistic scan of
+``adelie_tpu/solver/streamed.py``.  The JAX package fuses a whole chunk of
+lambdas into one jitted ``lax.scan``; PyTorch runs eagerly, so the scan is a
+Python loop with the same carry semantics.  Each lambda runs ``screen_fit``
+(screen gradient, pin solve, residual update) and then, on a matrix in
+device memory, ``full_kkt`` (full gradient, group norms, KKT verdict).  The
+loop advances through accepted lambdas and freezes at the first lambda
+that fails KKT or the pin solve, at the deviance early exit, or once the
+chunk's sweep budget is spent.  The host-streamed driver runs the same
+loop without ``full_kkt`` and certifies the chunk afterwards with one pass
+over the panel (``streamed.py``).
 """
 
 from dataclasses import dataclass
@@ -18,26 +23,22 @@ from .state_core import abs_grad_kernel
 
 
 @dataclass
-class StepResult:
-    """One lambda's fit.  Tensors stay on the device; the scalars were read
-    to the host."""
+class ScreenFit:
+    """One lambda's fit against the screened columns.  Tensors stay on the
+    device; ``rsq``, ``iters`` and ``done`` were read to the host."""
 
     beta: torch.Tensor       # (S_cap,)
     active: torch.Tensor     # (G_cap,) bool
     resid: torch.Tensor      # (n,)
-    abs_grad: torch.Tensor   # (G,)
+    resid_sum: torch.Tensor  # 0-d
     rsq: float
-    resid_sum: float
-    kkt: bool
-    done: bool
     iters: int
+    done: bool
 
 
-def gaussian_step(X, cache, beta, active, resid, rsq, w, X_means,
-                  group_ids, penalty_cols, penalty_groups, is_screen,
-                  lmda, alpha, tol, max_iters, intercept, num_groups):
-    """Screen gradient, pin solve, residual update, full gradient, group
-    norms and the KKT verdict at one lambda."""
+def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
+               max_iters, intercept):
+    """Screen gradient, pin solve and residual update at one lambda."""
     Xs = cache.Xs
     with matmul_precision():
         resid_sum0 = w @ resid
@@ -54,22 +55,31 @@ def gaussian_step(X, cache, beta, active, resid, rsq, w, X_means,
     with matmul_precision():
         resid_n = resid - Xs @ (beta_n - beta)
         resid_sum = w @ resid_n
-    grad = X.mul(resid_n, w)
-    if intercept:
-        grad = grad - resid_sum * X_means
+    return ScreenFit(beta_n, active_n, resid_n, resid_sum, rsq_n, iters, done)
 
-    abs_grad = abs_grad_kernel(
-        grad, cache.cols_padded, beta_n, penalty_cols, group_ids,
-        (1.0 - alpha) * min(lmda, 1e30), num_groups,
-    )
 
-    # KKT verdict (reference solver_base.hpp:410-433)
-    viol = abs_grad > lmda * alpha * penalty_groups
-    kkt = ~torch.any(viol & ~is_screen)
-    kkt_h, resid_sum_h = torch.stack(
-        [kkt.to(resid_sum.dtype), resid_sum]).tolist()
-    return StepResult(beta_n, active_n, resid_n, abs_grad, rsq_n,
-                      resid_sum_h, bool(kkt_h), done, iters)
+def full_kkt(X, cache, *, w, X_means, group_ids, penalty_cols,
+             penalty_groups, is_screen, alpha, intercept, num_groups):
+    """The KKT check of a matrix in device memory: ``check(fit, lmda)``
+    forms the full gradient, the group norms and the verdict (reference
+    solver_base.hpp:410-433) and returns ``(abs_grad, kkt, resid_sum)``
+    with the last two read to the host in one copy."""
+
+    def check(fit, lmda):
+        grad = X.mul(fit.resid, w)
+        if intercept:
+            grad = grad - fit.resid_sum * X_means
+        abs_grad = abs_grad_kernel(
+            grad, cache.cols_padded, fit.beta, penalty_cols, group_ids,
+            (1.0 - alpha) * min(lmda, 1e30), num_groups,
+        )
+        viol = abs_grad > lmda * alpha * penalty_groups
+        kkt = ~torch.any(viol & ~is_screen)
+        kkt_h, resid_sum_h = torch.stack(
+            [kkt.to(fit.resid_sum.dtype), fit.resid_sum]).tolist()
+        return abs_grad, bool(kkt_h), resid_sum_h
+
+    return check
 
 
 @dataclass
@@ -86,11 +96,13 @@ class ChunkCarry:
 
 @dataclass
 class Emit:
-    """What one processed lambda of a chunk reports."""
+    """What one processed lambda of a chunk reports.  ``resid_sum`` is a
+    float after a KKT check, else the fit's 0-d device tensor."""
 
     beta: torch.Tensor
+    active: torch.Tensor
     rsq: float
-    resid_sum: float
+    resid_sum: object
     accept: bool
     kkt: bool
     done: bool
@@ -98,40 +110,42 @@ class Emit:
     iters: int
 
 
-def gaussian_chunk_step(X, cache, carry: ChunkCarry, lmdas, *, w, X_means,
-                        group_ids, penalty_cols, penalty_groups, is_screen,
-                        alpha, tol, max_iters, y_var, adev_tol, ddev_tol,
-                        early_exit, sweep_budget, intercept, num_groups):
+def gaussian_chunk_step(cache, carry: ChunkCarry, lmdas, *, w, alpha, tol,
+                        max_iters, y_var, adev_tol, ddev_tol, early_exit,
+                        sweep_budget, intercept, kkt=None):
     """Fit the lambdas of a chunk in order from ``carry``.
 
-    Returns the carry after the last processed lambda and one ``Emit`` per
-    processed lambda; the loop stops after a lambda that is not accepted
-    (pin failure or KKT failure), after the early exit, or when the
-    chunk's sweeps reach ``sweep_budget``.
+    ``kkt`` is a ``full_kkt`` check, or None for the optimistic loop of the
+    host-streamed driver, which accepts every converged fit.  Returns the
+    carry after the last processed lambda and one ``Emit`` per processed
+    lambda; the loop stops after a lambda that is not accepted (pin
+    failure or KKT failure), after the early exit, or when the chunk's
+    sweeps reach ``sweep_budget``.
     """
     emits = []
     cum_iters = 0
     for lmda in lmdas:
-        r = gaussian_step(
-            X, cache, carry.beta, carry.active, carry.resid, carry.rsq, w,
-            X_means, group_ids, penalty_cols, penalty_groups, is_screen,
-            lmda, alpha, tol, max_iters, intercept, num_groups,
-        )
-        accept = r.done and r.kkt
-        dev = r.rsq / y_var if y_var > 0 else 0.0
+        f = screen_fit(cache, carry.beta, carry.active, carry.resid,
+                       carry.rsq, w, lmda, alpha, tol, max_iters, intercept)
+        if kkt is None:
+            abs_grad, ok, resid_sum = None, True, f.resid_sum
+        else:
+            abs_grad, ok, resid_sum = kkt(f, lmda)
+        accept = f.done and ok
+        dev = f.rsq / y_var if y_var > 0 else 0.0
         early = early_exit and accept and (
             dev >= adev_tol
             or (carry.have_prev and abs(dev - carry.prev_dev) < ddev_tol)
         )
-        cum_iters += r.iters
+        cum_iters += f.iters
         carry = ChunkCarry(
-            r.beta, r.active, r.resid, r.rsq, r.abs_grad,
+            f.beta, f.active, f.resid, f.rsq, abs_grad,
             dev if accept else carry.prev_dev,
             carry.have_prev or accept,
             carry.early_seen or early,
         )
-        emits.append(Emit(r.beta, r.rsq, r.resid_sum, accept, r.kkt, r.done,
-                          dev, r.iters))
+        emits.append(Emit(f.beta, f.active, f.rsq, resid_sum, accept, ok,
+                          f.done, dev, f.iters))
         if not accept or early or cum_iters >= sweep_budget:
             break
     return carry, emits

@@ -16,7 +16,7 @@ from ..configs import configs
 from ..exceptions import MaxCDsError
 from ..utils import Stopwatch, large_lmda
 from .basil import compute_lmda_max, compute_lmda_path, screen
-from .fused import ChunkCarry, gaussian_chunk_step
+from .fused import ChunkCarry, full_kkt, gaussian_chunk_step
 from .state_core import NaiveStateBase
 
 
@@ -64,6 +64,16 @@ class GaussianNaiveDriver:
         s.rsqs.append(float(rsq))
         s.devs.append(float(rsq) / s.y_var if s.y_var > 0 else 0.0)
 
+    def _loop_args(self):
+        """The chunk loop's arguments that do not change within a path."""
+        s = self.s
+        return dict(w=s.weights, alpha=s.alpha, tol=s.tol,
+                    max_iters=s.max_iters, y_var=s.y_var,
+                    adev_tol=s.adev_tol, ddev_tol=s.ddev_tol,
+                    early_exit=bool(s.early_exit),
+                    sweep_budget=configs.chunk_sweep_budget,
+                    intercept=s.intercept)
+
     def _run_chunk(self, lmdas, record):
         """Fit a chunk of lambdas.
 
@@ -88,17 +98,15 @@ class GaussianNaiveDriver:
             abs_grad=None, prev_dev=self._prev_dev,
             have_prev=self._have_prev_dev,
         )
-        carry, emits = gaussian_chunk_step(
-            s.X, cache, carry, lmdas,
-            w=s.weights, X_means=s.X_means, group_ids=s._group_ids,
-            penalty_cols=s._penalty_cols,
+        check = full_kkt(
+            s.X, cache, w=s.weights, X_means=s.X_means,
+            group_ids=s._group_ids, penalty_cols=s._penalty_cols,
             penalty_groups=self._penalty_groups_dev,
-            is_screen=s.screen_mask_dev(), alpha=s.alpha, tol=s.tol,
-            max_iters=s.max_iters, y_var=s.y_var, adev_tol=s.adev_tol,
-            ddev_tol=s.ddev_tol, early_exit=bool(s.early_exit),
-            sweep_budget=configs.chunk_sweep_budget,
+            is_screen=s.screen_mask_dev(), alpha=s.alpha,
             intercept=s.intercept, num_groups=len(s.groups),
         )
+        carry, emits = gaussian_chunk_step(
+            cache, carry, lmdas, kkt=check, **self._loop_args())
         n_proc = len(emits)
         # accepts are a prefix
         n_acc = sum(e.accept for e in emits)

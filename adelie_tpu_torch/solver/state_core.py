@@ -289,6 +289,8 @@ class NaiveStateBase:
     n_valid_solutions: list = field(default_factory=list)
     benchmark: dict = field(default_factory=lambda: {
         "screen": [], "fit_screen": [],
+        # per streamed pass of the host-streamed driver: its KKT seconds
+        "kkt": [],
         # per processed lambda: CD sweeps and sweeps x screened groups
         "cd_iters": [], "cd_updates": [],
     })

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, one line of output each (phases 8 and 12 a few):
+Phases, one line of output each (phases 8, 12, 13 and 14 a few):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from adelie_tpu_torch/csrc;
@@ -32,15 +32,34 @@ Phases, one line of output each (phases 8 and 12 a few):
     ``groups=None``, 50 lambdas, float32, the same KKT check and profile;
     then K4's times as K3's;
 11. a ``.snpdat`` file written and read by ``adelie_tpu_torch.io``, fitted
-    in float64 on "cuda" and on "cpu".
+    in float64 on "cuda" and on "cpu";
+12. K5 ``snp_mul_many`` against its twin: float checks at eight (p, n, C)
+    (every nb % 4, C from 1 to 200 across the kernel's 8-, 32- and
+    128-column variants, tensors starting unaligned) in float32 and
+    float64; exact checks with integer inputs at a north-star tile
+    (65,536 x 100,000) for C in {1, 2, 20, 50, 100}, the C the path uses
+    among them; the same through the streamed ``mul_many`` over four
+    tiles for C in {2, 20, 100};
+13. the host-streamed path against the in-device one: phase 9's GWAS
+    panel and phase 11's ``.snpdat`` problem (``tile_snps=256``, a ragged
+    last tile) fitted streamed on "cuda", with the speculative union off,
+    against phase 9's and phase 11's in-device fits;
+14. the north star: ``grpnet(matrix.snp_unphased(io, streaming=True),
+    glm.gaussian(y))`` over 1,000,000 SNPs x 100,000 samples (25 GB packed
+    in host memory; benchmark/north_star_data.py's panel, made here), 50
+    lambdas, float32, one warm-up fit, one timed, one profiled, a KKT
+    check in float64 from one plain pass over the panel, and K5's times on
+    its first tile.  The panel is cut in whole tiles, and the cut printed,
+    if the host's available memory cannot hold it and 16 GB more.
 
 Each main path has its launch counts: the counters are zeroed just before
 phase 5 and read just after phase 6 (the dense fits, K1 and K2), zeroed
-before phase 9 and read after it (K3), and zeroed before phase 10 and read
-after it (K4).  Every kernel must have run on its path.  Any failed phase
-exits non-zero.  The last three lines are the kernels' JSON, the card's
-name and power limit, and ``{"ok": true, "device": ...}``.  Needs one CUDA
-device; exits 1 without one.
+before phase 9 and read after it (K3), zeroed before phase 10 and read
+after it (K4), and zeroed before phase 14's timed fit and read after it
+(K5, with no K3).  Every kernel must have run on its path.  Any failed
+phase exits non-zero.  The last three lines are the kernels' JSON, the
+card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
+one CUDA device; exits 1 without one.
 """
 
 import json
@@ -546,19 +565,255 @@ def profile_fit(ad, Xm, y, **kw):
 
 
 def profile_line(prof):
+    """The profiled fit's wall, its kernels' busy time and idle share (no
+    kernel running; copies, which overlap kernels on the streamed path,
+    are summed apart) and its four busiest kernels."""
     if prof is None or prof[1] <= 0:
         return "profiled fit: device time not measured"
-    wall, busy, kernels = prof
+    wall, _, events = prof
+    copies = {k: v for k, v in events.items() if k.startswith("Mem")}
+    kernels = {k: v for k, v in events.items() if k not in copies}
+    busy = sum(ms for _, ms in kernels.values())
+    copy_ms = sum(ms for _, ms in copies.values())
     top = "; ".join(f"{name[:48]} x{c} {ms:.1f} ms"
                     for name, (c, ms) in list(kernels.items())[:4])
-    return (f"profiled fit: wall {wall:.3f} s, device busy {busy:.1f} ms, "
-            f"idle share {1 - busy / (wall * 1e3):.3f}; {top}")
+    return (f"profiled fit: wall {wall:.3f} s, kernels busy {busy:.1f} ms, "
+            f"idle share {1 - busy / (wall * 1e3):.3f}, copies "
+            f"{copy_ms:.1f} ms; {top}")
 
 
 def zero_counts(*counters):
     for c in counters:
         for key in c:
             c[key] = 0
+
+
+# --------------------------------------------------------------------------- #
+# phases 12 to 14: K5 and the host-streamed path                              #
+# --------------------------------------------------------------------------- #
+
+NS_N, NS_P, NS_TILE = 100_000, 1_000_000, 65_536
+NS_POOL = 1 << 28
+
+
+def many_bound(T, n, C):
+    """K5 in float32: the packed tile, U, impute and the output once;
+    2 T n C operations."""
+    nb = (n + 3) // 4
+    return bound(T * nb + 4 * C * n + 4 * T + 4 * T * C, 2 * T * n * C)
+
+
+def many_float_case(p, n, C, dtype, seed):
+    """K5 in ``dtype`` against its twin in float64, as snp_float_case:
+    |got - ref| <= tol (|X|^T |U_c|)_j, tol 1e-4 (f32) and 1e-12 (f64)."""
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    nb = (n + 3) // 4
+    packed = card_bytes(p + 1, nb, gen)[1:]
+    U = torch.randn((C, n), dtype=torch.float64, device=DEV, generator=gen)
+    imp = 2 * torch.rand(p, dtype=torch.float64, device=DEV, generator=gen)
+    got = sk.snp_mul_many(packed, U.to(dtype), imp.to(dtype)).double()
+    U64, imp64 = U.to(dtype).double(), imp.to(dtype).double()
+    ref = sk.snp_mul_many_ref(packed, U64, imp64)
+    scale = sk.snp_mul_many_ref(packed, U64.abs(), imp64.abs())
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    err = (got - ref).abs()
+    if tuple(got.shape) != (p, C) or not bool(torch.isfinite(got).all()) \
+            or bool((err > tol * scale).any()):
+        fail(f"K5 p={p} n={n} C={C} {dtype}: worst |diff| / (|X|^T|U|) "
+             f"{float((err / scale).max()):.3e} > {tol}")
+    return float(err.max())
+
+
+def int_inputs(p, n, C, gen):
+    """Uniform bytes (all four codes, a quarter of them NA), U in {-2..2}
+    and impute in {0, 1, 2}: every partial sum of a product is an integer
+    below 2^24 while n <= 2.7e6, so any order of the sums is exact."""
+    import torch
+
+    packed = card_bytes(p, (n + 3) // 4, gen)
+    U = torch.randint(-2, 3, (C, n), device=DEV, generator=gen).float()
+    imp = torch.randint(0, 3, (p,), device=DEV, generator=gen).float()
+    return packed, U, imp
+
+
+def many_exact_tile(T, n, Cs, seed):
+    """K5 bit-equal to its twin on integer inputs at one tile, for each C
+    in ``Cs`` (the first ``C`` rows of one integer U)."""
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    packed, U, imp = int_inputs(T, n, max(Cs), gen)
+    for C in Cs:
+        got, ref = sk.snp_mul_many(packed, U[:C], imp), sk.snp_mul_many_ref(
+            packed, U[:C], imp)
+        if not torch.equal(got, ref):
+            fail(f"K5 T={T} n={n} C={C} integer inputs: "
+                 f"{int((got != ref).sum())} entries differ from the twin")
+
+
+def stream_exact_case(ad, n, Cs, seed):
+    """The streamed ``mul_many`` over four tiles of different bytes (the
+    last ragged), for each C in ``Cs``, bit-equal to the twin on each
+    tile: a tile buffer rewritten before its kernel ran would show here."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    p = 3 * NS_TILE + 4321
+    packed, U, imp = int_inputs(p, n, max(Cs), gen)
+    io = PackedIO(packed.cpu().numpy(), n)
+    io.impute = imp.cpu().numpy()
+    Xm = ad.matrix.snp_unphased(io, streaming=True, dtype=np.float32,
+                                device=DEV)
+    before = sk.launches["snp_mul_many"]
+    for C in Cs:
+        ref = torch.cat([sk.snp_mul_many_ref(packed[s:s + NS_TILE], U[:C],
+                                             imp[s:s + NS_TILE])
+                         for s in range(0, p, NS_TILE)])
+        got = Xm.mul_many(U[:C])
+        if not torch.equal(got, ref):
+            fail(f"streamed mul_many, {Xm._ntiles} tiles, C={C}: "
+                 f"{int((got != ref).sum())} entries differ from the twin")
+    if DEV == "cuda" and \
+            sk.launches["snp_mul_many"] - before != len(Cs) * Xm._ntiles:
+        fail("streamed mul_many did not launch K5 once a tile")
+    return p, Xm._ntiles
+
+
+def meminfo():
+    """(MemTotal, MemAvailable) of the host in bytes."""
+    vals = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            vals[key] = int(rest.split()[0]) * 1024
+    return vals["MemTotal"], vals["MemAvailable"]
+
+
+def north_star_panel(P, N, seed=11):
+    """benchmark/north_star_data.py's panel and response, in memory: a
+    256 MB pool of LUT-mapped bytes (bench.py's 86/10/4 % dosage mix),
+    each SNP row a random window into it, and y from 60 causal SNPs plus
+    noise at 0.5 std.  Returns (io, y, causal)."""
+    import numpy as np
+
+    from adelie_tpu_torch.matrix._snp import unpack_2bit_np
+
+    nb = (N + 3) // 4
+    lut = code_lut(False)
+    rng = np.random.default_rng(seed)
+    pool = np.empty(NS_POOL, np.uint8)
+    slab = min(1 << 25, NS_POOL)
+    for s0 in range(0, NS_POOL, slab):
+        pool[s0:s0 + slab] = lut[rng.integers(0, 256, size=slab,
+                                              dtype=np.uint8)]
+    offsets = rng.integers(0, NS_POOL - nb, size=P, dtype=np.int64)
+    # row by row, as north_star_data.py does (np.take of a sliding-window
+    # view of the pool would first copy the whole view: hundreds of GB)
+    packed = np.empty((P, nb), np.uint8)
+    for i, o in enumerate(offsets.tolist()):
+        packed[i] = pool[o:o + nb]
+    del pool
+    rng = np.random.default_rng(seed + 1)
+    causal = np.sort(rng.choice(P, 60, replace=False))
+    cols = unpack_2bit_np(packed[causal], N).astype(np.float32)
+    beta = rng.standard_normal(60).astype(np.float32)
+    g = cols.T @ beta
+    y = g + np.float32(0.5 * g.std()) * \
+        rng.standard_normal(N).astype(np.float32)
+    io = PackedIO(packed, N)
+    io.impute = np.zeros(P, np.float32)
+    return io, y, causal
+
+
+def stream_kkt_check(what, io, y, state, block=2048, tile=NS_TILE):
+    """As snp_kkt_check, for a host-streamed fit, from the io's own arrays
+    and nothing of the streamed matrix: every lambda's residual in one
+    (n, L) float64 block, and one more pass over the panel, a tile at a
+    time by a plain synchronous copy, that decodes with plain torch code
+    and multiplies with torch.matmul in float64, never K5."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    n, p = io.rows(), io.snps()
+    imp = torch.as_tensor(np.asarray(io.impute, np.float64), device=DEV)
+
+    def decode(rows, imp_rows):
+        blk = sk.unpack_cols(rows, n, torch.float64)
+        return torch.where(blk == 3, imp_rows[None, :], blk)
+
+    act = np.unique(state.betas.tocsr().indices)
+    Ba = torch.as_tensor(state.betas.tocsc()[:, act].toarray(),
+                         dtype=torch.float64, device=DEV)
+    y64 = torch.as_tensor(np.asarray(y, np.float64), device=DEV)
+    b0 = torch.as_tensor(np.asarray(state.intercepts, np.float64),
+                         device=DEV)
+    Xa = decode(torch.from_numpy(io.packed[act]).to(DEV),
+                imp[torch.as_tensor(act, device=DEV)])
+    R = (y64[:, None] - Xa @ Ba.T - b0[None, :]) / n
+    del Xa
+    G = torch.empty((p, R.shape[1]), dtype=torch.float64, device=DEV)
+    for s in range(0, p, tile):
+        e = min(s + tile, p)
+        rows = torch.from_numpy(io.packed[s:e]).to(DEV)
+        for a in range(s, e, block):
+            b = min(a + block, e)
+            G[a:b] = decode(rows[a - s:b - s], imp[a:b]).T @ R
+        del rows
+    lm = torch.as_tensor(np.asarray(state.lmdas), device=DEV)
+    Bfull = torch.zeros((len(lm), p), dtype=torch.float64, device=DEV)
+    Bfull[:, torch.as_tensor(act, device=DEV)] = Ba
+    nz = Bfull != 0
+    g = G.T
+    v0 = torch.where(nz, 0.0, g.abs()).amax(dim=1) - lm
+    v1 = torch.where(nz, (g - lm[:, None] * Bfull.sign()).abs(),
+                     0.0).amax(dim=1)
+    worst = float((torch.maximum(v0, v1) / lm).max())
+    if not worst <= 1e-2:
+        fail(f"{what}: KKT violation {worst:.3e} lambda")
+    return worst
+
+
+def many_timing(tile, n, C, imp, seed):
+    """K5's, its twin's and torch.matmul's time on one device tile at C
+    residuals; the matmul multiplies the decoded float32 tile, cut to half
+    its rows (and said so) if it does not fit."""
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    U = torch.randn((C, n), device=DEV, generator=gen)
+    ms = cuda_ms(lambda: sk.snp_mul_many(tile, U, imp), reps=5)
+    plain_ms = cuda_ms(lambda: sk.snp_mul_many_ref(tile, U, imp), reps=1)
+    T = tile.shape[0]
+    note = ""
+    try:
+        Xd = decoded_f32(tile, n, imp)
+    except torch.cuda.OutOfMemoryError:
+        T //= 2
+        note = (f" (torch.matmul timed at {T} x {n} x {C}: the decoded "
+                "tile did not fit)")
+        torch.cuda.empty_cache()
+        Xd = decoded_f32(tile[:T], n, imp[:T])
+    Ut = U.T.contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(Xd, Ut), reps=5)
+    del Xd
+    torch.cuda.empty_cache()
+    b_ms, b_by = many_bound(tile.shape[0], n, C)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, note=note,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def main():
@@ -743,7 +998,8 @@ def main():
           f"{timing_line(snp_time['snp_mul'])}; launches x kernel ms "
           f"{k3_path_ms:.1f} ms, {k3_path_ms / (wall9 * 1e3):.2f} of the "
           f"path's wall | {card}")
-    del Xm9, io9
+    # io9, y9 and st9 stay for phase 13
+    del Xm9
     torch.cuda.empty_cache()
 
     # 10. phased ancestry at full width
@@ -801,7 +1057,158 @@ def main():
     if lm11 > 1e-10 or b11 > 1e-6:
         fail("the card's SNP fit differs from the CPU path")
 
-    # 12. the kernels' line
+    # 12. K5 against its twin
+    from adelie_tpu_torch.configs import set_configs
+
+    many_shapes = ((10, 9, 3), (300, 257, 8), (513, 1000, 1),
+                   (513, 4091, 100), (700, 1024, 33), (257, 2000, 200),
+                   (1001, 3333, 20), (129, 130, 9))
+    errs = [many_float_case(p, n, C, dtype, seed=p + n + C)
+            for p, n, C in many_shapes
+            for dtype in (torch.float32, torch.float64)]
+    snp_err["snp_mul_many"] = max(errs)
+    phase("K5", f"vs twin in f64, (p, n, C) in {many_shapes} (nb % 4 = "
+          f"{[(n + 3) // 4 % 4 for _, n, _ in many_shapes]}, tensors "
+          f"starting unaligned), f32 and f64: max |diff| {max(errs):.3e}, "
+          "within 1e-4 / 1e-12 of (|X|^T|U_c|)_j")
+    # the north-star path runs C = 2 (setup), 1 (dry fits) and the chunk's
+    # lambda count (up to 50); 20 takes the 32-column variant
+    exact_cs = (1, 2, 20, 50, 100)
+    many_exact_tile(NS_TILE, NS_N, exact_cs, seed=12)
+    phase("K5", f"integer inputs at the north-star tile T={NS_TILE} "
+          f"n={NS_N} C in {exact_cs}, all four codes, f32: bit-equal to the "
+          "twin")
+    stream_cs = (2, 20, 100)
+    p12, tiles12 = stream_exact_case(ad, 20_000, stream_cs, seed=13)
+    phase("K5", f"streamed mul_many over {tiles12} tiles (p={p12}, n=20000, "
+          f"C in {stream_cs}, integer inputs): bit-equal to the twin on "
+          "each tile")
+    torch.cuda.empty_cache()
+
+    # 13. the streamed path against the in-device one on the card
+    set_configs("stream_speculative_union", False)
+    try:
+        Xs9 = ad.matrix.snp_unphased(io9, streaming=True, dtype=np.float32,
+                                     device="cuda")
+        wall13, st13 = fit(ad, Xs9, y9, **kw9)
+        s11s = ad.grpnet(ad.matrix.snp_unphased(
+            io11, streaming=True, tile_snps=256, dtype=np.float64,
+            device="cuda"), d11["glm"], lmda_path_size=30, tol=1e-12)
+    finally:
+        set_configs("stream_speculative_union")
+    del Xs9, io9
+    # f32 bars: K3 sums a gradient as 256 thread partials and a tree, K5
+    # as one chain a column, so the gradients differ by ~1e-7 relative;
+    # lmda_max and the path move by that much, and the f32 pin solves
+    # (tol 1e-7) carry it into the coefficients at ~1e-5 of max|beta|.
+    # The bars, lambda 1e-5 relative and beta 1e-3 max|beta|, leave room
+    # for a screening decision taken one lambda apart.
+    for what, a, b, lm_bar, b_bar in (
+            ("GWAS f32 streamed vs in-HBM (cuda)", st13, st9, 1e-5,
+             1e-3 * float(np.abs(st9.betas.toarray()).max())),
+            ("snpdat f64 streamed (cuda, 6 tiles) vs in-HBM (cpu)", s11s,
+             c11, 1e-10, 1e-6)):
+        if a.error or len(a.lmdas) != len(b.lmdas):
+            fail(f"{what}: error {a.error!r}, {len(a.lmdas)} vs "
+                 f"{len(b.lmdas)} lambdas")
+        lm_d = float(np.max(np.abs(a.lmdas / b.lmdas - 1)))
+        b_d = float(np.max(np.abs(a.betas.toarray() - b.betas.toarray())))
+        phase("stream-vs-hbm", f"{what}: {len(a.lmdas)} lambdas, max lambda "
+              f"rel diff {lm_d:.1e} (bar {lm_bar:.0e}), max beta diff "
+              f"{b_d:.3e} (bar {b_bar:.2e}), streamed passes "
+              f"{len(a.benchmark['kkt'])}")
+        if lm_d > lm_bar or b_d > b_bar:
+            fail(f"{what}: past the bars")
+    phase("stream-vs-hbm", f"GWAS streamed fit wall {wall13:.3f} s against "
+          f"in-HBM {wall9:.3f} s | {card}")
+    del st9, st13, s11s
+    torch.cuda.empty_cache()
+
+    # 14. the north star: 1M SNPs x 100K samples streamed from host memory
+    nb_ns = (NS_N + 3) // 4
+    mem_total, mem_avail = meminfo()
+    P_ns = NS_P
+    margin = 16 * 10**9
+    if mem_avail < NS_P * nb_ns + margin:
+        P_ns = max((mem_avail - margin) // nb_ns // NS_TILE, 1) * NS_TILE
+    phase("north-star", f"host MemTotal {mem_total / 1e9:.1f} GB, "
+          f"MemAvailable {mem_avail / 1e9:.1f} GB; panel {P_ns} x {NS_N} "
+          f"= {P_ns * nb_ns / 1e9:.1f} GB packed"
+          + ("" if P_ns == NS_P else
+             f" (cut from p={NS_P} in whole tiles to fit the host)")
+          + f"; configs.snp_hbm_budget {ad.configs.snp_hbm_budget / 1e9:.0f}"
+          " GB, streaming=True forced")
+    t0 = time.perf_counter()
+    io14, y14, causal14 = north_star_panel(P_ns, NS_N)
+    synth14 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xm14 = ad.matrix.snp_unphased(io14, streaming=True, dtype=np.float32,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    reg14 = time.perf_counter() - t0
+    gb14 = P_ns * nb_ns / 1e9
+    # one pass of copies alone, and one mul_many pass at C = 1
+    copy_s, _ = host_ms(lambda: [None for _ in Xm14._tiles()])
+    u14 = torch.as_tensor(y14 / NS_N, device="cuda")[None, :]
+    pass_s, _ = host_ms(lambda: Xm14.mul_many(u14))
+    copy_s, pass_s = copy_s / 1e3, pass_s / 1e3
+    kw14 = dict(lmda_path_size=50, min_ratio=5e-2, device="cuda")
+    warm14, _ = fit(ad, Xm14, y14, **kw14)
+    torch.cuda.reset_peak_memory_stats()
+    sweeps0 = Xm14.sweeps
+    zero_counts(tk.launches, sk.launches)
+    wall14, st14 = fit(ad, Xm14, y14, **kw14)
+    counts14 = {**tk.launches, **sk.launches}
+    peak14 = torch.cuda.max_memory_allocated() / 2**30
+    sweeps14 = Xm14.sweeps - sweeps0
+    devs14 = np.asarray(st14.devs)
+    if st14.error != "" or not np.isfinite(devs14).all() \
+            or devs14[-1] <= 0.1:
+        fail(f"north-star fit: error {st14.error!r}, devs[-1] "
+             f"{devs14[-1]:.3f}")
+    if counts14["snp_mul_many"] <= 0 or counts14["snp_mul"] != 0:
+        fail(f"north-star fit: launches {counts14}; K5 must carry every "
+             "pass and K3 none")
+    kkt_passes = len(st14.benchmark["kkt"])
+    kkt_s = float(np.sum(st14.benchmark["kkt"]))
+    hits = len(set(st14.betas[-1].tocoo().col.tolist())
+               & set(causal14.tolist()))
+    prof14 = profile_fit(ad, Xm14, y14, **kw14)
+    t0 = time.perf_counter()
+    kkt14 = stream_kkt_check("north-star fit", io14, y14, st14)
+    kktc_s = time.perf_counter() - t0
+    L14 = len(st14.lmdas)
+    phase("north-star", f"n={NS_N} p={P_ns} f32 {L14} lambdas: path wall "
+          f"{wall14:.3f} s (warm-up {warm14:.3f} s; synthesis {synth14:.1f} "
+          f"s, page-locking {reg14:.2f} s), X.sweeps {sweeps14}, streamed "
+          f"KKT passes {kkt_passes} ({kkt_s:.3f} s), K5 launches "
+          f"{counts14['snp_mul_many']}, launches {counts14}, peak device "
+          f"memory {peak14:.2f} GiB | {card}")
+    phase("north-star", f"copy-only pass {copy_s:.3f} s = "
+          f"{gb14 / copy_s:.1f} GB/s H2D; mul_many pass at C=1 "
+          f"{pass_s:.3f} s = {gb14 / pass_s:.1f} GB/s; peak screen "
+          f"{int(max(st14.screen_sizes))}, causal hits in the last beta "
+          f"{hits}/60, devs[-1] {devs14[-1]:.4f}, worst KKT {kkt14:.2e} "
+          f"lambda (one plain f64 pass, {kktc_s:.1f} s) | {card}")
+    phase("north-star", f"{profile_line(prof14)} | {card}")
+    tile14 = Xm14._host[:NS_TILE].to("cuda")
+    C14 = max(L14, 1)
+    snp_time["snp_mul_many"] = many_timing(tile14, NS_N, C14,
+                                           Xm14._impute[:NS_TILE], seed=140)
+    r = snp_time["snp_mul_many"]
+    c1_ms = cuda_ms(lambda: sk.snp_mul_many(tile14, u14, Xm14._impute[
+        :NS_TILE]), reps=5)
+    phase("K5", f"on north-star tile 0, T={NS_TILE} n={NS_N} C={C14} f32: "
+          f"kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']}), torch.matmul on the "
+          f"decoded f32 tile {r['library_ms']:.3f} ms{r['note']}; at C=1 "
+          f"{c1_ms:.3f} ms; launches x C={C14} ms "
+          f"{counts14['snp_mul_many'] * r['ms']:.1f} ms (an upper bound: "
+          f"setup and dry-fit passes run C <= 2) | {card}")
+    del tile14, Xm14, io14, st14
+    torch.cuda.empty_cache()
+
+    # 15. the kernels' line
     k1_main = next(r for r in k1 if r["S"] == 1024
                    and r["dtype"] == "torch.float32")
     k2_main = next(r for r in k2 if r["S"] == 2048
@@ -838,7 +1245,9 @@ def main():
               ("snp_mul", "adelie_tpu/matrix/_snp_pallas.py:85",
                counts9["snp_mul"]),
               ("snp_mul_no_na", "adelie_tpu/matrix/_snp_pallas.py:192",
-               counts10["snp_mul_no_na"]))),
+               counts10["snp_mul_no_na"]),
+              ("snp_mul_many", "adelie_tpu/matrix/_snp_pallas.py:156",
+               counts14["snp_mul_many"]))),
     ]}
     print(json.dumps(kernels))
     print(card)

@@ -53,7 +53,36 @@ def test_nvcc_command_names_both_kernel_sources():
     cmd = _build.nvcc_command("/x/nvcc", Path("/tmp/out.so"))
     names = sorted(Path(a).name for a in cmd if a.endswith(".cu"))
     assert names == ["pin_kernels.cu", "snp_kernels.cu"]
+    # snp_kernels.cu holds K3, K4 and K5
+    src = (_build.CSRC_DIR / "snp_kernels.cu").read_text()
+    assert all(f"adelie_{k}_f32(" in src
+               for k in ("snp_mul", "snp_mul_no_na", "snp_mul_many"))
     assert "-fmad=false" in cmd
+
+
+def test_bind_declares_k5_with_64_bit_and_pointer_arguments():
+    """K5's entry points take (packed, ut, impute, out) as pointers, then
+    (p, nb, C, Cp) as 64-bit ints and the stream as a pointer: a pointer
+    passed as a c_int would be cut to 32 bits."""
+    from ctypes import c_int, c_int64, c_void_p
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = _Lib()
+    _build._bind(lib)
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"adelie_snp_mul_many_{suffix}")
+        assert fn.argtypes == [c_void_p] * 4 + [c_int64] * 4 + [c_void_p]
+        assert fn.restype is c_int
+        source = (_build.CSRC_DIR / "snp_kernels.cu").read_text()
+        assert f"int adelie_snp_mul_many_{suffix}(" in source
+    assert lib.adelie_snp_mul_many_cols.argtypes == [c_int64]
+    assert lib.adelie_snp_mul_many_cols.restype is c_int64
+    assert _build.CSRC_DIR / "snp_kernels.cu" in _build.SOURCES
 
 
 def test_codec_build_command_and_place():

@@ -163,21 +163,27 @@ def _tiny_io():
 
 
 def test_factories_raise_for_streaming_and_missing_gpu(monkeypatch):
+    """``streaming=True``, or ``"auto"`` above the budget, gives the
+    host-streamed matrix (float32 by default); ``n_threads`` is accepted;
+    a missing GPU raises for every SNP factory."""
     io = _tiny_io()
     packed = io.packed
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        ta.matrix.snp_unphased(io, streaming=True)
+    Streamed = ta.matrix.MatrixNaiveSNPUnphasedStreamed
+    m = ta.matrix.snp_unphased(io, streaming=True, n_threads=2, device="cpu")
+    assert isinstance(m, Streamed) and m.dtype == np.float32
     old = configs.snp_hbm_budget
     set_configs("snp_hbm_budget", packed.nbytes - 1)
     try:
-        with pytest.raises(NotImplementedError, match="queue 8"):
-            ta.matrix.snp_unphased(io)
-        assert ta.matrix.snp_unphased(io, streaming=False, device="cpu")
+        assert isinstance(ta.matrix.snp_unphased(io, device="cpu"), Streamed)
+        m = ta.matrix.snp_unphased(io, streaming=False, device="cpu")
+        assert not isinstance(m, Streamed) and m.dtype == np.float64
     finally:
         set_configs("snp_hbm_budget")
     assert configs.snp_hbm_budget == old == 40 * 10**9
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (ta.matrix.snp_unphased, ta.matrix.snp_phased_ancestry):
+    for make in (ta.matrix.snp_unphased, ta.matrix.snp_phased_ancestry,
+                 lambda io, **kw: ta.matrix.snp_unphased(io, streaming=True,
+                                                         **kw)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(io, device="cuda")
     assert ta.matrix.snp_unphased(io).device == torch.device("cpu")

@@ -1,4 +1,5 @@
-"""K3 and K4's plain twins against the JAX package's kernels, on the CPU.
+"""K3, K4 and K5's plain twins against the JAX package's kernels, on the
+CPU.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
 these twins there).  Here the twins, which the CPU path runs, are held
@@ -15,12 +16,17 @@ import torch
 
 import adelie_tpu as ja
 import adelie_tpu_torch as ta
-from adelie_tpu.matrix._snp_pallas import snp_mul_pallas, snp_mul_pallas_no_na
+from adelie_tpu.matrix._snp_pallas import (snp_mul_many_pallas,
+                                           snp_mul_pallas,
+                                           snp_mul_pallas_no_na)
+from adelie_tpu.matrix._snp_stream import _mul_many_xla
 from adelie_tpu_torch.matrix import snp_kernels as sk
 
 torch.set_num_threads(1)
 
 SHAPES = [(10, 9), (300, 257), (513, 1000)]
+# K5's: tests/test_io_snp.py's (p, n, C)
+MANY_SHAPES = [(10, 9, 3), (300, 257, 8), (513, 1000, 1)]
 
 
 def _inputs(p, n, seed, max_code=3):
@@ -66,6 +72,70 @@ def test_k4_twin_matches_pallas_kernel(p, n):
     got = sk.snp_mul_no_na_ref(torch.from_numpy(packed),
                                torch.from_numpy(u)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("p,n,C", MANY_SHAPES)
+def test_k5_twin_matches_pallas_kernel(p, n, C):
+    packed, _, impute = _inputs(p, n, seed=p + n + C)
+    if n % 4:
+        assert _has_tail_na(packed, n)
+    U = np.random.default_rng(C).standard_normal((C, n)).astype(np.float32)
+    want = np.asarray(snp_mul_many_pallas(
+        jnp.asarray(packed), jnp.asarray(U), jnp.asarray(impute),
+        interpret=True))
+    got = sk.snp_mul_many_ref(torch.from_numpy(packed), torch.from_numpy(U),
+                              torch.from_numpy(impute)).numpy()
+    assert got.shape == (p, C)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4)
+
+
+def test_k5_twin_matches_jax_xla_product_f64():
+    """Float64 against the JAX package's streamed tile product off the TPU:
+    three twin blocks, the last ragged, and a ragged sample tail."""
+    p, n, C = 4100, 257, 5
+    packed, _, impute = _inputs(p, n, seed=7)
+    impute = impute.astype(np.float64)
+    U = np.random.default_rng(8).standard_normal((C, n))
+    want = np.asarray(_mul_many_xla(jnp.asarray(packed), jnp.asarray(U),
+                                    jnp.asarray(impute), n=n))
+    got = sk.snp_mul_many_ref(torch.from_numpy(packed), torch.from_numpy(U),
+                              torch.from_numpy(impute)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    # a column does not depend on the others: the kernel's property too
+    one = sk.snp_mul_many_ref(torch.from_numpy(packed),
+                              torch.from_numpy(U[2:3].copy()),
+                              torch.from_numpy(impute)).numpy()
+    np.testing.assert_array_equal(one[:, 0], got[:, 2])
+
+
+def test_k5_wrapper_routes_and_refuses():
+    """On the CPU the wrapper runs the twin and counts nothing; it refuses
+    what the kernel does not take."""
+    packed, _, impute = _inputs(40, 37, seed=3)
+    pk, it = torch.from_numpy(packed), torch.from_numpy(impute)
+    U = torch.randn(4, 37)
+    before = dict(sk.launches)
+    assert torch.equal(sk.snp_mul_many(pk, U, it),
+                       sk.snp_mul_many_ref(pk, U, it))
+    assert sk.launches == before and "snp_mul_many" in before
+    with pytest.raises(TypeError, match="impute is required"):
+        sk.snp_mul_many(pk, U, None)
+    with pytest.raises(ValueError, match=r"\(C, n\)"):
+        sk.snp_mul_many(pk, U[0], it)
+    with pytest.raises(ValueError, match="4 nb"):
+        sk.snp_mul_many(pk, torch.zeros(2, 41), it)
+    with pytest.raises(ValueError, match="4 nb"):
+        sk.snp_mul_many(pk, torch.zeros(0, 37), it)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sk.snp_mul_many(pk, U.half(), it)
+    with pytest.raises(TypeError, match="impute"):
+        sk.snp_mul_many(pk, U, it.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.snp_mul_many(pk, U.T.contiguous().T, it)
+    meta = torch.empty((8, 5), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel or twin"):
+        sk.snp_mul_many(meta, torch.empty((2, 20), device="meta"),
+                        torch.empty(8, device="meta"))
 
 
 class _IO:
