@@ -5,7 +5,7 @@ at its first use into ``build/adelie_tpu_torch/`` beside the package, named
 by a hash of its sources and flags, and loaded with ``ctypes``:
 
 * the CUDA kernels (``*.cu``), by ``nvcc``, into one library, at the first
-  CUDA call;
+  CUDA call: one ``nvcc`` a source, all started together, then one link;
 * the ``.snpdat`` codec (``snpio.cpp``, host code), by the host C++
   compiler, at the first SNP file read or write.
 
@@ -34,9 +34,10 @@ SOURCES = (CSRC_DIR / "pin_kernels.cu", CSRC_DIR / "snp_kernels.cu")
 # twin take the same Gauss-Seidel path (same sweeps, same stops).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # where the CUDA toolkit is looked for after $CUDA_HOME and $PATH
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -93,7 +94,7 @@ def _hash(sources, flags) -> str:
 
 
 def source_hash() -> str:
-    return _hash(SOURCES, NVCC_FLAGS)
+    return _hash(SOURCES, NVCC_FLAGS + LINK_FLAGS)
 
 
 def library_path() -> Path:
@@ -104,12 +105,47 @@ def snpio_library_path() -> Path:
     return BUILD_DIR / f"snpio_{_hash((SNPIO_SOURCE,), CXX_FLAGS)}.so"
 
 
-def nvcc_command(nvcc: str, out: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: Path) -> tuple:
+    """``(compiles, link)``: one compile command a source, each into an
+    object file beside ``out``, and the command that links them into
+    ``out``."""
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objs, SOURCES)]
+    return compiles, [nvcc, *LINK_FLAGS, "-o", str(out), *map(str, objs)]
 
 
 def cxx_command(cxx: str, out: Path) -> list:
     return [cxx, *CXX_FLAGS, str(SNPIO_SOURCE), "-o", str(out)]
+
+
+def _compile_cuda(nvcc: str, out: Path) -> tuple:
+    """Compile every source at once in a temporary directory beside
+    ``out``, link, then rename the library to ``out``; return (compiler
+    output, seconds)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        lib = Path(tmp) / out.name
+        compiles, link = nvcc_commands(nvcc, lib)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"{cmd[0]} failed with code {proc.returncode} on "
+                    f"{cmd[-1]}:\n{log}"
+                )
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"{link[0]} failed to link with code {proc.returncode}:\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(lib, out)
+    return "".join(logs) + proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
 def _compile(command, out: Path) -> tuple:
@@ -149,8 +185,10 @@ def _bind(lib) -> None:
         f = getattr(lib, f"adelie_pin_lasso_solve_{suffix}")
         f.argtypes = [ptr] * 11 + [c_int, real, real, real, real, c_int, ptr]
         f.restype = c_int
-        f = getattr(lib, f"adelie_cd_sweep_rows_{suffix}")
-        f.argtypes = [ptr] * 9 + [c_int, c_int, real, real, real, ptr]
+        # (16 pointers, S, G, l1, l2, tol, rsq, max_iters, stream)
+        f = getattr(lib, f"adelie_pin_lasso_solve_rows_{suffix}")
+        f.argtypes = [ptr] * 16 + [c_int, c_int, real, real, real, real,
+                                   c_int, ptr]
         f.restype = c_int
         # (packed, u_pad, [impute,] out, p, nb, stream)
         for name, n_ptr in (("snp_mul", 4), ("snp_mul_no_na", 3)):
@@ -175,8 +213,7 @@ def load():
             path = library_path()
             if not path.exists():
                 nvcc = find_nvcc()
-                build_log, build_seconds = _compile(
-                    lambda out: nvcc_command(nvcc, out), path)
+                build_log, build_seconds = _compile_cuda(nvcc, path)
             lib = _open(path)
             _bind(lib)
             _lib = lib

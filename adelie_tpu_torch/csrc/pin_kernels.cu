@@ -2,8 +2,9 @@
 //
 // Two kernels, each templated on float and double (the H100 has native
 // FP64), with a plain C interface loaded by ctypes from
-// adelie_tpu_torch/solver/pin_kernels.py.  Every entry point launches on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+// adelie_tpu_torch/solver/pin_kernels.py: K1 solves at S <= 1024, K2 above.
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
 //
 // Both kernels run Gauss-Seidel coordinate descent on the screen Gram A
 // (S x S, symmetric, row-major): update i needs the gradient that every
@@ -199,71 +200,574 @@ __global__ void __launch_bounds__(K1_MAX_S) pin_lasso_solve_kernel(
 }
 
 // ------------------------------------------------------------------------ //
-// K2: cd_sweep_rows                                                        //
+// K2: pin_lasso_solve_rows                                                 //
 // ------------------------------------------------------------------------ //
 //
 // Replaces adelie_tpu/solver/pin_pallas.py:cd_sweep_rows_pallas
-// (_cd_sweep_rows_kernel): one Gauss-Seidel pass over a fixed list of n
-// updates (pos[k], akk[k], pk[k]), k < n, for screens past K1's S <= 1024.
-// The block reads the list and n itself from device memory, so the caller
-// never syncs to learn n.  beta and grad are updated in place.
+// (_cd_sweep_rows_kernel, one Gauss-Seidel pass over a list of updates
+// with the Gram in HBM) together with the loop around it in
+// adelie_tpu/solver/pin.py:pin_cov_solve: the whole q = 1 pin solve at one
+// lambda for S > 1024, in one launch.  The active phase compacts
+// is_active & valid into an ascending list once and sweeps it (at least
+// once, then until convg < tol_f, a floor-gated stall or max_iters); the
+// filtered full sweep proposes a soft threshold at the sweep-entry gradient
+// for every valid slot and runs the sequential pass over the slots whose
+// proposal differs from beta; both repeat until a full sweep's
+// convg < tol_f.  Moved slots of a full sweep become active.  Lists are
+// built by a block-wide prefix sum (warp ballots), into shared memory when
+// it leaves room for a ring of two whole rows, else into a global scratch
+// buffer, so any S runs.
 //
-// What bounds it here: per update one row of A (S values) from L2/HBM and
-// one barrier.  Thread t owns the coordinates j = t (mod blockDim): it does
-// their share of every row AXPY in grad (global memory, L1/L2 resident) and
-// is therefore the only writer of grad[j] and beta[j], so the owner of
-// pos[k] reads current values without an extra barrier.  No row prefetch
-// yet: the TPU kernel's depth-4 row DMA ring is later work.
+// What bounds it here: the serial chain, not bytes.  Every update needs the
+// gradient the update before it left, so one solve is one block, and each
+// update costs one barrier (the delta's broadcast through a double-buffered
+// shared slot) plus a row of A.  Read after the barrier, that row would put
+// a full L2/HBM latency on the chain for every update; so the list of a
+// pass, known before the pass begins, drives a ring of rows in shared
+// memory, the TPU kernel's row DMA ring done Hopper's way: a producer warp,
+// outside the consumers' barrier, issues one bulk copy (TMA) a row into
+// the next free slot, completing on the slot's "full" mbarrier, and
+// refills a slot once its "empty" mbarrier says the row was read; an
+// update waits on its row only if its delta is not 0.  A row too wide for
+// two slots is streamed in the fewest equal segments of which two fit (two
+// at S = 16384 in float64), with a barrier between segments.
+// The consumers take one named barrier an update.  Consumer thread t owns
+// the 16-byte vectors v = t (mod NT) of grad and beta (the owner rule of
+// K1): it is their only writer, so the owner of update k reads current
+// values with no extra barrier; it loads the update's beta, a_kk, p_k and
+// slot PREFETCH updates ahead, which no update before k can change (a pass
+// lists distinct positions).  grad stays in shared memory when it leaves
+// room for a ring of two whole rows, else in global memory.  On this card the
+// chain costs about 0.4 us an update with no arithmetic at all (the
+// floor chip_smoke.py measures), and most of an update beside it.
 
-constexpr int K2_THREADS = 1024;
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <> struct Vec<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+__device__ __forceinline__ void sub_scaled(float4& g, const float4& a,
+                                           float d) {
+  g.x = g.x - d * a.x;
+  g.y = g.y - d * a.y;
+  g.z = g.z - d * a.z;
+  g.w = g.w - d * a.w;
+}
+__device__ __forceinline__ void sub_scaled(double2& g, const double2& a,
+                                           double d) {
+  g.x = g.x - d * a.x;
+  g.y = g.y - d * a.y;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// barrier 1: the NT consumer threads only (barrier 0, __syncthreads, also
+// takes the producer warp)
+template <int NT>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+}
+// wait until the phase of parity `parity` of the mbarrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// order this thread's earlier shared-memory accesses before later bulk
+// copies (the async proxy) into the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// one bulk copy (TMA) of `bytes` (a multiple of 16) from global to shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 227 KB: the most shared memory one block may have on sm_90; the static
+// part of the kernel stays under the margin
+constexpr int SMEM_LIMIT = 232448;
+constexpr int SMEM_STATIC_MARGIN = 1024;
+// consumer threads of a block (a producer warp comes on top): of 128, 256
+// and 512, measured at S = 2048 and 8192, 256 was the best or within noise
+// at both (PERF.md)
+constexpr int ROWS_NT = 256;
+constexpr int RING_MAX = 16;     // ring units at most (the TPU kernel: 4)
+constexpr int PREFETCH = 4;      // updates the owner loads ahead
+constexpr int AXPY_BATCH = 4;    // vectors a thread loads before it stores
+constexpr int SCAN_INTS = 64;    // warp counts of a list build, and a total
+
+struct RowsLayout {
+  int grad_smem;  // grad in shared memory (else global)
+  int plan_smem;  // a pass's list in shared memory (else a global scratch)
+  int depth;      // ring units
+  int chunk;      // 16-byte vectors a thread copies per unit
+  int nch;        // units per row
+  int nvt;        // vectors of a row a thread owns
+  int bytes;      // dynamic shared memory
+  int grad_off, plan_off, scan_off;
+};
+
+inline long long align16(long long x) { return (x + 15) / 16 * 16; }
+
+// The shared-memory plan, [ring | grad | list | scan], with as few units a
+// row as the budget allows, since every unit past the first costs the
+// consumers one more barrier an update: whole rows in a ring of at least
+// two, with grad and then the list in shared memory while they leave room
+// for it; else each row in the fewest equal segments of which two fit.
+// The ring takes whatever is left, up to RING_MAX units.  0 on success.
+inline int rows_layout(int S, int itemsize, RowsLayout* L) {
+  if (S < 4 || S % 4 || (itemsize != 4 && itemsize != 8)) return 1;
+  const long long piece = ROWS_NT * 16LL;  // one vector a thread
+  const long long nvec = S / (16 / itemsize);
+  const long long nvt = (nvec + ROWS_NT - 1) / ROWS_NT;
+  const long long row = nvt * piece;
+  const long long scan = align16(4LL * SCAN_INTS);
+  const long long budget = SMEM_LIMIT - SMEM_STATIC_MARGIN - scan;
+  const long long grad = align16((long long)S * itemsize);
+  const long long plan = align16(4LL * S);
+  L->grad_smem = 1;
+  L->plan_smem = 1;
+  long long ring = budget - grad - plan;
+  if (ring < 2 * row) {
+    L->grad_smem = 0;
+    ring = budget - plan;
+  }
+  if (ring < 2 * row) {
+    L->plan_smem = 0;
+    ring = budget;
+  }
+  long long nch = 1, chunk = nvt;
+  if (ring < 2 * row) {
+    const long long most = ring / (2 * piece);  // the widest of two units
+    nch = (nvt + most - 1) / most;
+    chunk = (nvt + nch - 1) / nch;
+  }
+  long long depth = ring / (chunk * piece);
+  if (depth > RING_MAX) depth = RING_MAX;
+  L->depth = (int)depth;
+  L->chunk = (int)chunk;
+  L->nch = (int)nch;
+  L->nvt = (int)nvt;
+  L->grad_off = (int)(depth * chunk * piece);
+  L->plan_off = L->grad_off + (L->grad_smem ? (int)grad : 0);
+  L->scan_off = L->plan_off + (L->plan_smem ? (int)plan : 0);
+  L->bytes = L->scan_off + (int)scan;
+  return 0;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(K2_THREADS) cd_sweep_rows_kernel(
-    const T* __restrict__ A, T* __restrict__ beta, T* __restrict__ grad,
-    const int32_t* __restrict__ pos, const T* __restrict__ akk,
-    const T* __restrict__ pk, const int32_t* __restrict__ n_ptr,
-    uint8_t* __restrict__ moved, T* __restrict__ info, int S, int C, T l1,
-    T l2, T rsq0) {
+struct RowsArgs {
+  const T* A;
+  const T* beta0;
+  const T* grad0;
+  const int64_t* slot_begin;
+  const int32_t* slot_size;
+  const T* eigvals;  // (G, 1)
+  const T* penalty;
+  const uint8_t* active0;
+  T* beta;           // (S,) output and working state
+  T* grad;           // (S,) output; working state when not in shared memory
+  uint8_t* active;   // (G,) output and working state
+  T* info;           // (rsq, iters, done)
+  T* akk_p;          // (S,) scratch: a_kk, p_k and slot by position
+  T* pk_p;
+  int32_t* slot_p;
+  int32_t* plan;     // (S,) scratch: a pass's list, unless in shared memory
+  int S, G;
+  T l1, l2, tol, rsq0;
+  int max_iters;
+  RowsLayout L;
+};
+
+template <typename T, bool GRAD_SMEM>
+__global__ void __launch_bounds__(ROWS_NT + 32)
+    pin_lasso_solve_rows_kernel(const RowsArgs<T> a) {
+  constexpr int NT = ROWS_NT;
+  using V = typename Vec<T>::type;
+  constexpr int VEC = Vec<T>::n;
+  constexpr int NWARPS = NT / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T s_delta[2];
   __shared__ T s_drsq[2];
   __shared__ T s_dconv[2];
+  __shared__ T s_red[32];
+  __shared__ uint64_t s_full[RING_MAX];   // a slot's row has landed
+  __shared__ uint64_t s_empty[RING_MAX];  // a slot's row has been read
+  __shared__ int s_cmd;                   // units of the next pass; < 0: exit
+
+  const RowsLayout L = a.L;
+  V* ring = reinterpret_cast<V*>(smem);
+  T* grad = GRAD_SMEM ? reinterpret_cast<T*>(smem + L.grad_off) : a.grad;
+  V* gvec = reinterpret_cast<V*>(grad);
+  int* plan = L.plan_smem ? reinterpret_cast<int*>(smem + L.plan_off)
+                          : a.plan;
+  int* s_scan = reinterpret_cast<int*>(smem + L.scan_off);
 
   const int t = threadIdx.x;
-  const int nthreads = blockDim.x;
-  for (int k = t; k < C; k += nthreads) moved[k] = 0;
-  int n = *n_ptr;
-  n = n < C ? n : C;
-  T rsq = rsq0;
-  T convg = T(0);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int S = a.S;
+  const int G = a.G;
+  const int nvec = S / VEC;
+  const int nvt = L.nvt;
+  const int D = L.depth;
+  const int chunk = L.chunk;
+  const int nch = L.nch;
+
+  if (t == 0) {
+    for (int i = 0; i < D; ++i) {
+      mbar_init(&s_full[i], 1);
+      mbar_init(&s_empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int k = 0; k < n; ++k) {
-    const int p = pos[k];
-    const int slot = k & 1;
-    if (p % nthreads == t) {
-      const T a = akk[k];
-      const T b = beta[p];
-      const T g = grad[p];
-      const T bnew = soft_update(b, g, a, pk[k], l1, l2);
-      const T d = bnew - b;
-      beta[p] = bnew;
-      moved[k] = d != T(0);
-      s_delta[slot] = d;
-      s_drsq[slot] = d * (T(2) * g - d * a);
-      s_dconv[slot] = a * d * d;
+  // The producer warp: for each pass, one bulk copy (TMA) a unit (segment
+  // u % nch of the row of update u / nch) into slot u % D of the ring,
+  // completing on s_full; a slot is refilled once s_empty says its last
+  // unit was read.  A slot's mbarriers complete once a use, so their
+  // parity flips each wrap.
+  if (t >= NT) {
+    unsigned p_slot = 0, p_par = 0, p_used = 0;
+    while (true) {
+      __syncthreads();  // the consumers' command
+      const int units = s_cmd;
+      if (units < 0) break;
+      if (t == NT) {
+        int pk = 0, pc = 0;
+        for (int u = 0; u < units; ++u) {
+          if (p_used >= (unsigned)D) mbar_wait(&s_empty[p_slot], p_par ^ 1u);
+          const int v0 = pc * chunk * NT;
+          const unsigned bytes = (unsigned)min(chunk * NT, nvec - v0) * 16u;
+          fence_proxy_async();
+          mbar_expect_tx(&s_full[p_slot], bytes);
+          bulk_copy(ring + (size_t)p_slot * chunk * NT,
+                    a.A + (size_t)plan[pk] * S + (size_t)v0 * VEC, bytes,
+                    &s_full[p_slot]);
+          if (++pc == nch) {
+            pc = 0;
+            ++pk;
+          }
+          ++p_used;
+          if (++p_slot == (unsigned)D) {
+            p_slot = 0;
+            p_par ^= 1u;
+          }
+        }
+      }
+      __syncwarp();
     }
-    __syncthreads();
-    const T d = s_delta[slot];
-    if (d != T(0)) {
-      const T* __restrict__ row = A + (size_t)p * S;
-      for (int j = t; j < S; j += nthreads) grad[j] -= d * row[j];
-      rsq = rsq + s_drsq[slot];
-      convg = nan_max(convg, s_dconv[slot]);
+    return;
+  }
+
+  // The consumers: NT threads, thread t owning the vectors v = t (mod NT)
+  const T l1 = a.l1;
+  const T l2 = a.l2;
+  auto owns = [&](int p) { return ((p / VEC) & (NT - 1)) == t; };
+
+  // working state: each thread copies the elements it owns
+  for (int i = 0; i < nvt; ++i) {
+    const int v = t + i * NT;
+    if (v < nvec) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        grad[v * VEC + e] = a.grad0[v * VEC + e];
+        a.beta[v * VEC + e] = a.beta0[v * VEC + e];
+      }
+    }
+  }
+  // a valid slot names a position of A; the wrapper's contract, checked
+  // here only so that malformed buffers cannot write out of bounds
+  auto valid = [&](int s) {
+    return a.slot_size[s] > 0 && a.slot_begin[s] >= 0 && a.slot_begin[s] < S;
+  };
+  T lam = T(0);
+  for (int s = t; s < G; s += NT) {
+    a.active[s] = a.active0[s];
+    lam = nan_max(lam, T(fabs(a.eigvals[s])));
+    if (valid(s)) {
+      const int p = (int)a.slot_begin[s];
+      a.akk_p[p] = a.eigvals[s];
+      a.pk_p[p] = a.penalty[s];
+      a.slot_p[p] = s;
+    }
+  }
+  // lam_max = max(max |eigvals|, 1), NaN propagating
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lam = nan_max(lam, __shfl_xor_sync(0xffffffffu, lam, off));
+  if (lane == 0) s_red[warp] = lam;
+  consumer_sync<NT>();
+  lam = T(0);
+  for (int w = 0; w < NWARPS; ++w) lam = nan_max(lam, s_red[w]);
+  lam = nan_max(lam, T(1));
+
+  // dtype-feasibility floor and floor-gated stall, as K1
+  const T eps = Eps<T>::value();
+  const T tol_f =
+      nan_max(a.tol, T(100) * lam * ((T(10) * eps) * (T(10) * eps)));
+  const T stall_floor = T(1e8) * lam * eps * eps;
+
+  T rsq = a.rsq0;
+  unsigned step = 0;  // updates so far: parity picks the shared slot
+
+  // The list of a pass into plan, ascending in slot: the active slots
+  // (full == false) or the slots whose proposal at the sweep-entry
+  // gradient differs from beta (full == true).  Returns its length.
+  auto build_list = [&](bool full) -> int {
+    consumer_sync<NT>();  // the last pass's updates and reads are done
+    int count = 0;
+    for (int base = 0; base < G; base += NT) {
+      const int s = base + t;
+      bool f = false;
+      int p = 0;
+      if (s < G && valid(s)) {
+        p = (int)a.slot_begin[s];
+        if (!full) {
+          f = a.active[s] != 0;
+        } else {
+          const T bk = a.beta[p];
+          const T akk = a.eigvals[s];
+          const T pk = a.penalty[s];
+          const T u = grad[p] + akk * bk;
+          const T vthr = fabs(u) - l1 * pk;
+          const T den = akk + l2 * pk;
+          const T bnew =
+              vthr > T(0) ? sign_of(u) * vthr / (den > T(0) ? den : T(1))
+                          : T(0);
+          f = bnew != bk;
+        }
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (lane == 0) s_scan[warp] = __popc(bal);
+      consumer_sync<NT>();
+      if (warp == 0) {
+        const int x = lane < NWARPS ? s_scan[lane] : 0;
+        int incl = x;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        if (lane < NWARPS) s_scan[lane] = incl - x;
+        if (lane == 31) s_scan[32] = incl;
+      }
+      consumer_sync<NT>();
+      const int at = count + s_scan[warp] + __popc(bal & ((1u << lane) - 1u));
+      if (f && at < S) plan[at] = p;
+      count += s_scan[32];
+      consumer_sync<NT>();  // s_scan is rewritten by the next tile
+    }
+    // more listed slots than positions: two valid slots share one
+    return min(count, S);
+  };
+
+  unsigned c_slot = 0, c_par = 0;  // the ring slot of the next unit to read
+  unsigned r_slot = 0, r_par = 0;  // the ring slot of the next to release
+  // After a consumer barrier, the unit before it has been read.  Its copy
+  // may not have landed yet (an update whose delta is 0 reads nothing), so
+  // thread 0 waits for it first: the ring's two mbarriers then stay in
+  // step, and every copy of a pass has landed when the pass ends.
+  auto release = [&]() {
+    if (t == 0) {
+      mbar_wait(&s_full[r_slot], r_par);
+      mbar_arrive(&s_empty[r_slot]);
+    }
+    if (++r_slot == (unsigned)D) {
+      r_slot = 0;
+      r_par ^= 1u;
+    }
+  };
+
+  // One Gauss-Seidel pass over the n listed positions; returns its convg.
+  auto run_pass = [&](int n, bool full) -> T {
+    T convg = T(0);
+    if (n == 0) return convg;
+    if (t == 0) s_cmd = n * nch;
+    __syncthreads();  // hand the list to the producer
+
+    // the owner's loads, PREFETCH updates ahead
+    int ppos[PREFETCH];
+    T pb[PREFETCH], pa[PREFETCH], pp[PREFETCH];
+    int ps[PREFETCH];
+    auto prefetch = [&](int q, int k) {
+      const int p = plan[k];
+      ppos[q] = p;
+      if (owns(p)) {
+        pb[q] = a.beta[p];
+        pa[q] = a.akk_p[p];
+        pp[q] = a.pk_p[p];
+        ps[q] = a.slot_p[p];
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q)
+      if (q < n) prefetch(q, q);
+
+    for (int k0 = 0; k0 < n; k0 += PREFETCH) {
+#pragma unroll
+      for (int q = 0; q < PREFETCH; ++q) {
+        const int k = k0 + q;
+        if (k >= n) break;
+        const int p = ppos[q];
+        const unsigned par = step & 1u;
+        if (owns(p)) {
+          const T g = grad[p];
+          const T b = pb[q];
+          const T akk = pa[q];
+          const T bnew = soft_update(b, g, akk, pp[q], l1, l2);
+          const T d = bnew - b;
+          s_delta[par] = d;
+          s_drsq[par] = d * (T(2) * g - d * akk);
+          s_dconv[par] = akk * d * d;
+          a.beta[p] = bnew;
+          if (full && d != T(0)) a.active[ps[q]] = 1;
+        }
+        consumer_sync<NT>();
+        if (k > 0) release();  // the last unit of update k - 1
+        const T d = s_delta[par];
+        const T drsq = s_drsq[par];
+        const T dconv = s_dconv[par];
+        // the owner's loads for update k + PREFETCH (this update's are used)
+        if (k + PREFETCH < n) prefetch(q, k + PREFETCH);
+        if (d != T(0)) {
+          rsq = rsq + drsq;
+          convg = nan_max(convg, dconv);
+        }
+        for (int c = 0; c < nch; ++c) {
+          // a row in segments: the segment before was read by everyone
+          if (c > 0) {
+            consumer_sync<NT>();
+            release();
+          }
+          if (d != T(0)) {
+            mbar_wait(&s_full[c_slot], c_par);
+            const V* src = ring + (size_t)c_slot * chunk * NT;
+            const int i0 = c * chunk;
+            const int i1 = min(i0 + chunk, nvt);
+            // AXPY_BATCH vectors at a time, every load issued before the
+            // first store, so their latencies overlap
+            for (int ib = i0; ib < i1; ib += AXPY_BATCH) {
+              V gv[AXPY_BATCH], av[AXPY_BATCH];
+#pragma unroll
+              for (int j = 0; j < AXPY_BATCH; ++j) {
+                const int i = ib + j;
+                const int v = t + i * NT;
+                if (i < i1 && v < nvec) {
+                  gv[j] = gvec[v];
+                  av[j] = src[(i - i0) * NT + t];
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < AXPY_BATCH; ++j) {
+                const int i = ib + j;
+                const int v = t + i * NT;
+                if (i < i1 && v < nvec) {
+                  sub_scaled(gv[j], av[j], d);
+                  gvec[v] = gv[j];
+                }
+              }
+            }
+          }
+          if (++c_slot == (unsigned)D) {
+            c_slot = 0;
+            c_par ^= 1u;
+          }
+        }
+        ++step;
+      }
+    }
+    consumer_sync<NT>();
+    release();  // the last unit of the pass
+    return convg;
+  };
+
+  auto next_slow = [](int slow, T convg, T prev) {
+    return convg >= T(0.99) * prev ? slow + 1 : 0;
+  };
+  auto stalled = [&](int slow, T convg) {
+    return slow >= 3 && convg <= stall_floor;
+  };
+
+  T convg = T(INFINITY);
+  int slow = 0;
+  int iters = 0;
+  bool done = false;
+  const int max_iters = a.max_iters;
+  while (!done && iters < max_iters && !stalled(slow, convg) &&
+         convg == convg) {
+    const T prev = convg;
+    // active phase: the list is fixed, so it is built once
+    const int na = build_list(false);
+    T c = run_pass(na, false);
+    int a_slow = 0;
+    int it = iters + 1;
+    while (c >= tol_f && it < max_iters && !stalled(a_slow, c)) {
+      const T a_prev = c;
+      c = run_pass(na, false);
+      a_slow = next_slow(a_slow, c, a_prev);
+      ++it;
+    }
+    iters = it;
+    const int nf = build_list(true);
+    convg = run_pass(nf, true);
+    slow = next_slow(slow, convg, prev);
+    ++iters;
+    done = convg < tol_f;
+  }
+  // a floor-gated stall is convergence at the dtype's floor; NaN is failure
+  done = (done || stalled(slow, convg)) && convg == convg;
+
+  if (t == 0) s_cmd = -1;
+  __syncthreads();  // the producer stops
+  if (GRAD_SMEM) {
+    for (int i = 0; i < nvt; ++i) {
+      const int v = t + i * NT;
+      if (v < nvec) reinterpret_cast<V*>(a.grad)[v] = gvec[v];
     }
   }
   if (t == 0) {
-    info[0] = convg;
-    info[1] = rsq;
+    a.info[0] = rsq;
+    a.info[1] = T(iters);
+    a.info[2] = done ? T(1) : T(0);
   }
 }
 
@@ -284,17 +788,60 @@ int launch_pin_lasso_solve(const void* A, const void* diag,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_cd_sweep_rows(const void* A, void* beta, void* grad,
-                         const void* pos, const void* akk, const void* pk,
-                         const void* n, void* moved, void* info, int S, int C,
-                         T l1, T l2, T rsq, void* stream) {
-  if (S < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  cd_sweep_rows_kernel<T><<<1, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)A, (T*)beta, (T*)grad, (const int32_t*)pos, (const T*)akk,
-      (const T*)pk, (const int32_t*)n, (uint8_t*)moved, (T*)info, S, C, l1,
-      l2, rsq);
+template <typename T, bool GRAD_SMEM>
+int launch_rows_block(const RowsArgs<T>& args, cudaStream_t stream) {
+  auto kernel = pin_lasso_solve_rows_kernel<T, GRAD_SMEM>;
+  // above 48 KB a block's dynamic shared memory must be opted into, once
+  // per kernel
+  static int opted_in = 0;
+  if (args.L.bytes > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, args.L.bytes);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = args.L.bytes;
+  }
+  kernel<<<1, ROWS_NT + 32, args.L.bytes, stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pin_lasso_solve_rows(
+    const void* A, const void* beta0, const void* grad0,
+    const void* slot_begin, const void* slot_size, const void* eigvals,
+    const void* penalty, const void* active0, void* beta, void* grad,
+    void* active, void* info, void* akk_p, void* pk_p, void* slot_p,
+    void* plan, int S, int G, T l1, T l2, T tol, T rsq, int max_iters,
+    void* stream) {
+  RowsArgs<T> args;
+  if (S < 1 || G < 1 || ((uintptr_t)A & 15) ||
+      rows_layout(S, (int)sizeof(T), &args.L) != 0)
+    return (int)cudaErrorInvalidValue;
+  args.A = (const T*)A;
+  args.beta0 = (const T*)beta0;
+  args.grad0 = (const T*)grad0;
+  args.slot_begin = (const int64_t*)slot_begin;
+  args.slot_size = (const int32_t*)slot_size;
+  args.eigvals = (const T*)eigvals;
+  args.penalty = (const T*)penalty;
+  args.active0 = (const uint8_t*)active0;
+  args.beta = (T*)beta;
+  args.grad = (T*)grad;
+  args.active = (uint8_t*)active;
+  args.info = (T*)info;
+  args.akk_p = (T*)akk_p;
+  args.pk_p = (T*)pk_p;
+  args.slot_p = (int32_t*)slot_p;
+  args.plan = (int32_t*)plan;
+  args.S = S;
+  args.G = G;
+  args.l1 = l1;
+  args.l2 = l2;
+  args.tol = tol;
+  args.rsq0 = rsq;
+  args.max_iters = max_iters;
+  cudaStream_t st = (cudaStream_t)stream;
+  return args.L.grad_smem ? launch_rows_block<T, true>(args, st)
+                          : launch_rows_block<T, false>(args, st);
 }
 
 }  // namespace
@@ -327,22 +874,30 @@ int adelie_pin_lasso_solve_f64(const void* A, const void* diag,
                                         max_iters, stream);
 }
 
-int adelie_cd_sweep_rows_f32(const void* A, void* beta, void* grad,
-                             const void* pos, const void* akk, const void* pk,
-                             const void* n, void* moved, void* info, int S,
-                             int C, float l1, float l2, float rsq,
-                             void* stream) {
-  return launch_cd_sweep_rows<float>(A, beta, grad, pos, akk, pk, n, moved,
-                                     info, S, C, l1, l2, rsq, stream);
+int adelie_pin_lasso_solve_rows_f32(
+    const void* A, const void* beta0, const void* grad0,
+    const void* slot_begin, const void* slot_size, const void* eigvals,
+    const void* penalty, const void* active0, void* beta, void* grad,
+    void* active, void* info, void* akk_p, void* pk_p, void* slot_p,
+    void* plan, int S, int G, float l1, float l2, float tol, float rsq,
+    int max_iters, void* stream) {
+  return launch_pin_lasso_solve_rows<float>(
+      A, beta0, grad0, slot_begin, slot_size, eigvals, penalty, active0, beta,
+      grad, active, info, akk_p, pk_p, slot_p, plan, S, G, l1, l2, tol, rsq,
+      max_iters, stream);
 }
 
-int adelie_cd_sweep_rows_f64(const void* A, void* beta, void* grad,
-                             const void* pos, const void* akk, const void* pk,
-                             const void* n, void* moved, void* info, int S,
-                             int C, double l1, double l2, double rsq,
-                             void* stream) {
-  return launch_cd_sweep_rows<double>(A, beta, grad, pos, akk, pk, n, moved,
-                                      info, S, C, l1, l2, rsq, stream);
+int adelie_pin_lasso_solve_rows_f64(
+    const void* A, const void* beta0, const void* grad0,
+    const void* slot_begin, const void* slot_size, const void* eigvals,
+    const void* penalty, const void* active0, void* beta, void* grad,
+    void* active, void* info, void* akk_p, void* pk_p, void* slot_p,
+    void* plan, int S, int G, double l1, double l2, double tol, double rsq,
+    int max_iters, void* stream) {
+  return launch_pin_lasso_solve_rows<double>(
+      A, beta0, grad0, slot_begin, slot_size, eigvals, penalty, active0, beta,
+      grad, active, info, akk_p, pk_p, slot_p, plan, S, G, l1, l2, tol, rsq,
+      max_iters, stream);
 }
 
 const char* adelie_cuda_error_string(int code) {

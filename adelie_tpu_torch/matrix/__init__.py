@@ -13,14 +13,19 @@ __all__ = ["MatrixNaiveBase", "MatrixNaiveDense",
            "snp_phased_ancestry", "snp_unphased"]
 
 
-def dense(mat, *, method: str = "naive", dtype=None, device=None):
-    """Dense matrix on ``device`` (default: ``"cuda"`` when a GPU is
-    available, else ``"cpu"``).  Only ``method="naive"`` is ported."""
+def dense(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
+          copy: bool = False, device=None):
+    """Dense matrix on ``device`` (default ``"cuda"``, which raises without
+    a GPU: pass ``device="cpu"`` for the CPU).  Only ``method="naive"`` is
+    ported.  ``copy=False`` lets a CPU matrix share the memory of a numpy
+    array of its dtype, as the reference's matrices view theirs;
+    ``copy=True`` always copies.  ``n_threads`` is accepted for the JAX
+    package's signature and ignored."""
     if method != "naive":
         raise NotImplementedError(
             f"dense(method={method!r}) is not ported yet (ROADMAP.md queue 1)"
         )
-    return MatrixNaiveDense(mat, dtype=dtype, device=device)
+    return MatrixNaiveDense(mat, dtype=dtype, device=device, copy=copy)
 
 
 def snp_unphased(io, *, n_threads: int = 1, dtype=None, device=None,

@@ -16,7 +16,7 @@ from .base import MatrixNaiveBase
 
 
 class MatrixNaiveDense(MatrixNaiveBase):
-    def __init__(self, mat, *, dtype=None, device=None):
+    def __init__(self, mat, *, dtype=None, device=None, copy=False):
         mat = np.asarray(mat)
         if dtype is None:
             dtype = mat.dtype if mat.dtype in TORCH_DTYPE else np.float32
@@ -27,8 +27,8 @@ class MatrixNaiveDense(MatrixNaiveBase):
         self.torch_dtype = TORCH_DTYPE[self.dtype]
         self.device = resolve_device(device)
         self._rows, self._cols = mat.shape
-        self._mat = torch.as_tensor(mat, dtype=self.torch_dtype,
-                                    device=self.device)
+        make = torch.tensor if copy else torch.as_tensor
+        self._mat = make(mat, dtype=self.torch_dtype, device=self.device)
 
     @property
     def mat(self):

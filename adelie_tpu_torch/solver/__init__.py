@@ -44,10 +44,15 @@ def grpnet(
     penalty=None,
     offsets=None,
     lmda_path=None,
+    irls_max_iters: int = int(1e4),
+    irls_tol: float = 1e-7,
     max_iters: int = int(1e5),
     tol: float = 1e-7,
     adev_tol: float = 0.9,
     ddev_tol: float = 0.0,
+    newton_tol: float = 1e-12,
+    newton_max_iters: int = 1000,
+    n_threads: int = 1,
     early_exit: bool = True,
     intercept: bool = True,
     screen_rule: str = "pivot",
@@ -59,6 +64,7 @@ def grpnet(
     pivot_subset_min: int = 1,
     pivot_slack_ratio: float = 1.25,
     screen_cap_active_mult: float = None,
+    check_state: bool = False,
     progress_bar: bool = False,
     warm_start=None,
     exit_cond=None,
@@ -71,11 +77,20 @@ def grpnet(
     path with BASIL screening.
 
     ``device``: where every tensor of the fit lives; ``None`` means the
-    device of a matrix ``X`` or, for an array, ``"cuda"`` when a GPU is
-    available, else ``"cpu"``.  ``"cuda"`` without a GPU raises.
-    ``progress_bar`` is accepted for the JAX package's signature and
-    ignored.
+    device of a matrix ``X`` or, for an array, ``"cuda"``, which raises
+    without a GPU: pass ``device="cpu"`` to fit on the CPU.
+
+    Accepted for the JAX package's signature and ignored: ``n_threads``
+    and ``progress_bar``; ``irls_max_iters`` and ``irls_tol`` until GLMs
+    are ported, ``newton_tol`` and ``newton_max_iters`` until groups of
+    size > 1 are (ROADMAP.md queue 1 items 2-3).  ``check_state=True``
+    raises ``NotImplementedError`` until the state checks are ported
+    (ROADMAP.md queue 1 item 7).
     """
+    if check_state:
+        raise NotImplementedError(
+            "check_state=True is not ported yet (ROADMAP.md queue 1 item 7: "
+            "the model-selection layer)")
     screen_rule = types.screen_rule(screen_rule)
     if glm.is_multi:
         raise NotImplementedError(

@@ -108,6 +108,7 @@ class GaussianNaiveDriver:
         carry, emits = gaussian_chunk_step(
             cache, carry, lmdas, kkt=check, **self._loop_args())
         n_proc = len(emits)
+        s.benchmark["pin_caps"].extend([cache.S_cap] * n_proc)
         # accepts are a prefix
         n_acc = sum(e.accept for e in emits)
         kkt_clean = n_acc == n_proc

@@ -293,6 +293,9 @@ class NaiveStateBase:
         "kkt": [],
         # per processed lambda: CD sweeps and sweeps x screened groups
         "cd_iters": [], "cd_updates": [],
+        # per pin solve, dry fits included: the screen capacity S of its
+        # Gram (S > 1024 runs K2)
+        "pin_caps": [],
     })
     total_time: float = 0.0
     error: str = ""

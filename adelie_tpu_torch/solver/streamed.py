@@ -163,6 +163,7 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
         carry, emits = gaussian_chunk_step(cache, carry, lmdas,
                                            **self._loop_args())
         n_proc = len(emits)
+        s.benchmark["pin_caps"].extend([cache.S_cap] * n_proc)
         lm = lmdas[:n_proc]
         dones = np.asarray([e.done for e in emits])
         rsums_h = torch.stack([e.resid_sum for e in emits]).tolist()

@@ -68,7 +68,7 @@ def test_large_p_basil_screening(intercept):
     assert max(ts.screen_sizes) < 1100
 
 
-def test_screen_past_1024_takes_k2():
+def test_screen_past_1024_takes_k2(monkeypatch):
     """The strong rule at a deep chunk end screens most of p = 1100, so the
     screen capacity passes 1024 and K2's twin with the filtered full sweep
     carries the pin solves.
@@ -81,10 +81,18 @@ def test_screen_past_1024_takes_k2():
     X, y, _, _ = _data(50, 1100, 5, seed=3)
     kw = dict(screen_rule="strong", early_exit=False, lmda_path_size=8,
               min_ratio=0.02, tol=1e-12)
+    solves = []
+    twin = tk.pin_lasso_solve_rows_ref
+    monkeypatch.setattr(tk, "pin_lasso_solve_rows_ref",
+                        lambda *a: solves.append(a[0].shape[0]) or twin(*a))
     js, ts = _fit_both(X, y, **kw)
     _assert_same_path(js, ts)
     assert max(ts.screen_sizes) > 1024
-    assert tk.launches == {"pin_lasso_solve": 0, "cd_sweep_rows": 0}
+    assert tk.launches == {"pin_lasso_solve": 0, "pin_lasso_solve_rows": 0}
+    # the state counts every pin solve past 1024, dry fits included: the
+    # count a run on the card holds K2's launches against
+    caps = ts.benchmark["pin_caps"]
+    assert solves and solves == [c for c in caps if c > 1024]
 
 
 _WS_KEYS = ("screen_set", "screen_begins", "screen_beta", "screen_is_active",
@@ -113,3 +121,58 @@ def test_warm_start_from_jax_state():
     np.testing.assert_allclose(ts.betas.toarray(), full.betas.toarray()[10:],
                                atol=1e-6)
     np.testing.assert_allclose(ts.devs, full.devs[10:], atol=1e-8)
+
+
+# the port's deliberate departures from adelie_tpu's signatures: where the
+# tensors live, and the JAX package's device mesh
+_PORT_ONLY = {"grpnet": {"device"}, "dense": {"device"}}
+_JAX_ONLY = {"grpnet": set(), "dense": {"mesh"}}
+
+
+@pytest.mark.parametrize("name", ["grpnet", "dense"])
+def test_signatures_match_jax_package(name):
+    """Both packages' ``grpnet`` and ``matrix.dense`` take the same keywords
+    with the same defaults, but for the listed differences; so
+    ``n_threads=`` is accepted (and ignored), as docs/parallelism.md
+    promises."""
+    import inspect
+
+    jf = ja.grpnet if name == "grpnet" else ja.matrix.dense
+    tf = ta.grpnet if name == "grpnet" else ta.matrix.dense
+    jp = inspect.signature(jf).parameters
+    tp = inspect.signature(tf).parameters
+    assert set(tp) - set(jp) == _PORT_ONLY[name]
+    assert set(jp) - set(tp) == _JAX_ONLY[name]
+    for key in set(jp) & set(tp):
+        assert tp[key].default == jp[key].default, key
+        assert tp[key].kind == jp[key].kind, key
+    assert "n_threads" in tp
+
+
+_OPTION_CASES = [("screen_all", "unpenalized"), ("screen_all", "offsets"),
+                 ("basil", "unpenalized"), ("basil", "offsets")]
+
+
+@pytest.mark.parametrize("screen,option", _OPTION_CASES,
+                         ids=[f"{s}-{o}" for s, o in _OPTION_CASES])
+def test_unpenalized_groups_and_offsets(screen, option):
+    """Unpenalized groups (penalty 0: screened and active from the start)
+    and ``offsets``, under screen-all (p < 1024) and under BASIL (p past
+    1024), at the sizes of the tests above."""
+    n, p = (120, 40) if screen == "screen_all" else (50, 1100)
+    X, y, w, pen = _data(n, p, 5, seed=6)
+    kw = dict(lmda_path_size=12)
+    if option == "unpenalized":
+        pen = pen.copy()
+        pen[[2, 7]] = 0.0
+        kw["penalty"] = pen
+    else:
+        kw["offsets"] = np.random.default_rng(7).uniform(-0.5, 0.5, n)
+    js, ts = _fit_both(X, y, w, **kw)
+    _assert_same_path(js, ts)
+    if option == "unpenalized":
+        assert (ts.betas.toarray()[:, [2, 7]] != 0).all()
+    if screen == "basil":
+        assert max(ts.screen_sizes) < p
+    else:
+        assert ts.screen_sizes[0] == p

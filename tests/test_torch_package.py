@@ -37,27 +37,37 @@ def test_cuda_without_gpu_raises(monkeypatch):
         ta.grpnet(X, ta.glm.gaussian(np.ones(4)), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ta.matrix.dense(X, device="cuda:0")
-    assert ta.matrix.dense(X).device == torch.device("cpu")
+    # the default is the card, so without one it raises too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ta.grpnet(X, ta.glm.gaussian(np.ones(4)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ta.matrix.dense(X)
+    assert ta.matrix.dense(X, device="cpu").mat.device == torch.device("cpu")
 
 
 def test_nvcc_command_targets_sm90a_and_csrc_only():
-    cmd = _build.nvcc_command("/x/nvcc", Path("/tmp/out.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    srcs = [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp"))]
-    assert srcs, cmd
+    out = Path("/tmp/out.so")
+    compiles, link = _build.nvcc_commands("/x/nvcc", out)
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+    # one source a compile, each in csrc/, each into its own object file
+    srcs = [Path(c[-1]) for c in compiles]
     assert all(s.parent == _build.CSRC_DIR and s.is_file() for s in srcs)
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert len(set(objs)) == len(objs) and link[-len(objs):] == objs
+    assert link[link.index("-o") + 1] == str(out) and "-shared" in link
     assert _build.library_path().parent == REPO / "build" / "adelie_tpu_torch"
 
 
 def test_nvcc_command_names_both_kernel_sources():
-    cmd = _build.nvcc_command("/x/nvcc", Path("/tmp/out.so"))
-    names = sorted(Path(a).name for a in cmd if a.endswith(".cu"))
+    compiles, _ = _build.nvcc_commands("/x/nvcc", Path("/tmp/out.so"))
+    names = sorted(Path(c[-1]).name for c in compiles)
     assert names == ["pin_kernels.cu", "snp_kernels.cu"]
     # snp_kernels.cu holds K3, K4 and K5
     src = (_build.CSRC_DIR / "snp_kernels.cu").read_text()
     assert all(f"adelie_{k}_f32(" in src
                for k in ("snp_mul", "snp_mul_no_na", "snp_mul_many"))
-    assert "-fmad=false" in cmd
+    assert all("-fmad=false" in c and "-c" in c for c in compiles)
 
 
 def test_bind_declares_k5_with_64_bit_and_pointer_arguments():
@@ -83,6 +93,32 @@ def test_bind_declares_k5_with_64_bit_and_pointer_arguments():
     assert lib.adelie_snp_mul_many_cols.argtypes == [c_int64]
     assert lib.adelie_snp_mul_many_cols.restype is c_int64
     assert _build.CSRC_DIR / "snp_kernels.cu" in _build.SOURCES
+
+
+def test_bind_declares_k2_with_its_list_scratch():
+    """K2's entry points take 16 pointers (inputs, outputs and the scratch
+    buffers, the pass list's among them), then (S, G), four scalars of the
+    dtype, max_iters and the stream, as the source declares them."""
+    from ctypes import c_double, c_float, c_int, c_void_p
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = _Lib()
+    _build._bind(lib)
+    source = (_build.CSRC_DIR / "pin_kernels.cu").read_text()
+    for suffix, real in (("f32", c_float), ("f64", c_double)):
+        fn = getattr(lib, f"adelie_pin_lasso_solve_rows_{suffix}")
+        assert fn.argtypes == ([c_void_p] * 16 + [c_int, c_int]
+                               + [real] * 4 + [c_int, c_void_p])
+        assert fn.restype is c_int
+        head = source[source.index(
+            f"int adelie_pin_lasso_solve_rows_{suffix}("):]
+        head = head[:head.index(")")]
+        assert head.count("void*") == 17 and "void* plan, int S, int G" in head
 
 
 def test_codec_build_command_and_place():
@@ -125,11 +161,11 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel or twin"):
         tk.pin_lasso_solve(A, v, v, v, b, b, v, 0.1, 1.0, 1e-7, 10, 0.0)
     with pytest.raises(ValueError, match="no kernel or twin"):
-        tk.cd_sweep_rows(A, v, v, torch.empty(2, dtype=torch.int32,
-                                               device="meta"),
-                         v[:2], v[:2], torch.empty(1, dtype=torch.int32,
-                                                   device="meta"),
-                         0.1, 0.0, 0.0)
+        tk.pin_lasso_solve_rows(A, v, v, torch.empty(4, dtype=torch.int64,
+                                                      device="meta"),
+                                torch.empty(4, dtype=torch.int32,
+                                            device="meta"),
+                                v[:, None], v, b, 0.1, 1.0, 1e-7, 10, 0.0)
 
 
 @pytest.mark.parametrize("name,tf32", [("highest", False), ("float32", False),
@@ -179,3 +215,31 @@ def test_dense_matrix_products_match_numpy():
     np.testing.assert_allclose(M.tmul(b).numpy(), X @ b)
     np.testing.assert_allclose(M.sq_mul(t(w)).numpy(), (X * X).T @ w)
     np.testing.assert_array_equal(M.to_dense(), X)
+
+
+def test_grpnet_accepts_the_jax_keywords():
+    """``n_threads``, ``irls_*`` and ``newton_*`` are accepted and change
+    nothing yet; ``check_state=True`` is not ported and raises."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((30, 5))
+    y = X[:, 0] + 0.1 * rng.standard_normal(30)
+    kw = dict(lmda_path_size=5, device="cpu")
+    a = ta.grpnet(X, ta.glm.gaussian(y), **kw)
+    b = ta.grpnet(X, ta.glm.gaussian(y), n_threads=2, irls_max_iters=10,
+                  irls_tol=1e-7, newton_tol=1e-12, newton_max_iters=5,
+                  check_state=False, **kw)
+    assert a.error == b.error == ""
+    np.testing.assert_array_equal(a.betas.toarray(), b.betas.toarray())
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ta.grpnet(X, ta.glm.gaussian(y), check_state=True, **kw)
+
+
+def test_dense_copy_and_n_threads():
+    """``copy=False`` lets a CPU matrix share a numpy array of its dtype;
+    ``copy=True`` never does; ``n_threads`` is accepted."""
+    X = np.arange(12.0).reshape(4, 3)
+    shared = ta.matrix.dense(X, n_threads=4, device="cpu")
+    copied = ta.matrix.dense(X, copy=True, device="cpu")
+    X[0, 0] = 100.0
+    assert shared.mat[0, 0].item() == 100.0
+    assert copied.mat[0, 0].item() == 0.0

@@ -71,7 +71,7 @@ def test_k1_twin_matches_pallas_kernel_f32(S, n_invalid, lmda, alpha):
         lmda, alpha, 1e-9, 100000, 0.0,
     )
     rsq, iters, done = info.tolist()
-    assert tk.launches == {"pin_lasso_solve": 0, "cd_sweep_rows": 0}
+    assert tk.launches == {"pin_lasso_solve": 0, "pin_lasso_solve_rows": 0}
     np.testing.assert_allclose(beta.numpy(), np.asarray(out_p[0]),
                                rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(grad_n.numpy(), np.asarray(out_p[1]),
@@ -145,12 +145,12 @@ def test_k2_twin_matches_pallas_kernel_f32():
         jnp.asarray(n, jnp.int32), jnp.asarray(l1), jnp.asarray(l2),
         jnp.asarray(rsq0), interpret=True)
     t = torch.from_numpy
-    bt, gt, mt, info = tk.cd_sweep_rows(
+    bt, gt, mt, info = tk.cd_sweep_rows_ref(
         t(A), t(beta), t(grad), t(pos), t(akk), t(pk),
         torch.tensor([n], dtype=torch.int32), float(l1), float(l2),
         float(rsq0),
     )
-    assert tk.launches == {"pin_lasso_solve": 0, "cd_sweep_rows": 0}
+    assert tk.launches == {"pin_lasso_solve": 0, "pin_lasso_solve_rows": 0}
     np.testing.assert_allclose(bt.numpy(), np.asarray(b2), rtol=1e-5,
                                atol=1e-7)
     np.testing.assert_allclose(gt.numpy(), np.asarray(g2), rtol=1e-5,
@@ -186,7 +186,7 @@ def test_zero_denominator_keeps_beta(kernel):
         assert not act[7]
     else:
         pos = np.arange(S, dtype=np.int32)
-        b, g, moved, info = tk.cd_sweep_rows(
+        b, g, moved, info = tk.cd_sweep_rows_ref(
             t(A), t(beta), t(grad), t(pos), t(np.diag(A).copy()),
             torch.ones(S, dtype=torch.float64),
             torch.tensor([S], dtype=torch.int32), 0.05, 0.0, 0.0,
@@ -197,9 +197,23 @@ def test_zero_denominator_keeps_beta(kernel):
     assert (b.numpy() != beta).sum() > 0
 
 
-def test_pin_cov_solve_past_1024_matches_jax_f64():
-    """S_cap = 2048 takes K2's twin with the filtered full sweep in the
-    port, the fori-loop sweep with the same filter in JAX."""
+PAST_1024_CASES = [
+    (np.float64, "cold"), (np.float64, "warm"), (np.float64, "invalid"),
+    (np.float64, "unpenalized"), (np.float32, "cold"), (np.float32, "warm"),
+]
+
+
+@pytest.mark.parametrize("dtype,case", PAST_1024_CASES,
+                         ids=[f"{np.dtype(d).name}-{c}"
+                              for d, c in PAST_1024_CASES])
+def test_pin_cov_solve_past_1024_matches_jax_f64(dtype, case):
+    """S_cap = 2048 takes K2's twin (the whole solve, with the filtered full
+    sweep) in the port, the fori-loop sweeps with the same filter in JAX.
+
+    Cases: float64 and float32; a cold start; a warm start whose active
+    set and coefficients are given; invalid slots interleaved with the
+    valid ones; one slot with penalty 0.  Bars: float64 beta within atol
+    1e-8, float32 within rtol 1e-5 of max |beta|; active flags, iters and done equal."""
     rng = np.random.default_rng(5)
     p = 96
     B = rng.standard_normal((200, p)) / 14
@@ -211,23 +225,50 @@ def test_pin_cov_solve_past_1024_matches_jax_f64():
     g = np.zeros(S_cap)
     g[:p] = g_small
     sb = np.arange(S_cap, dtype=np.int32)
-    ssz = (np.arange(S_cap) < p).astype(np.int32)
-    ev = np.where(np.arange(S_cap) < p, np.diag(A), 0.0)[:, None]
+    valid = np.arange(S_cap) < p
+    if case == "invalid":
+        valid[3:p:7] = False
     pen = np.ones(S_cap)
+    if case == "unpenalized":
+        pen[4] = 0.0
+    beta0 = np.zeros(S_cap)
     act = np.zeros(S_cap, bool)
+    if case == "warm":
+        beta0[:p] = np.where(rng.random(p) < 0.2,
+                             0.3 * rng.standard_normal(p), 0.0)
+        g = g - A @ beta0
+        act = beta0 != 0
+    ssz = valid.astype(np.int32)
+    ev = np.where(valid, np.diag(A), 0.0)[:, None]
+    A, g, beta0, ev, pen = (x.astype(dtype) for x in (A, g, beta0, ev, pen))
     out_x = jax_pin_cov_solve(
-        jnp.asarray(A), jnp.asarray(g), jnp.zeros(S_cap), jnp.asarray(sb),
-        jnp.asarray(ssz), jnp.asarray(ev), jnp.ones((S_cap, 1, 1)),
-        jnp.asarray(pen), jnp.asarray(act), 0.2, 1.0, 1e-12, 1e-14, 1e-12,
-        1000, 100000, 0.0,
+        jnp.asarray(A), jnp.asarray(g), jnp.asarray(beta0), jnp.asarray(sb),
+        jnp.asarray(ssz), jnp.asarray(ev),
+        jnp.ones((S_cap, 1, 1), dtype), jnp.asarray(pen), jnp.asarray(act),
+        *(dtype(x) for x in (0.2, 1.0, 1e-12, 1e-14, 1e-12)), 1000, 100000,
+        dtype(0.0),
     )
     t = torch.from_numpy
     beta, _, act_t, rsq, iters, done = tpin.pin_cov_solve(
-        t(A), t(g), torch.zeros(S_cap, dtype=torch.float64), t(sb), t(ssz),
-        t(ev), t(pen), t(act), 0.2, 1.0, 1e-12, 100000, 0.0,
+        t(A), t(g), t(beta0), t(sb), t(ssz), t(ev), t(pen), t(act), 0.2,
+        1.0, 1e-12, 100000, 0.0,
     )
-    assert tk.launches == {"pin_lasso_solve": 0, "cd_sweep_rows": 0}
-    np.testing.assert_allclose(beta.numpy(), np.asarray(out_x[0]), atol=1e-8)
+    assert tk.launches == {"pin_lasso_solve": 0, "pin_lasso_solve_rows": 0}
+    assert beta.dtype == t(A).dtype
+    if dtype == np.float64:
+        np.testing.assert_allclose(beta.numpy(), np.asarray(out_x[0]),
+                                   atol=1e-8)
+    else:
+        # relative to the largest coefficient: the two packages round the
+        # row AXPYs apart, and a small coefficient carries that absolute
+        # difference
+        want = np.asarray(out_x[0])
+        np.testing.assert_allclose(beta.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
     np.testing.assert_array_equal(act_t.numpy(), np.asarray(out_x[2]))
     assert done == bool(out_x[5]) is True
     assert iters == int(out_x[4])
+    if case == "unpenalized":
+        assert act_t[4] and beta[4] != 0
+    if case == "invalid":
+        assert not act_t.numpy()[~valid].any()

@@ -186,7 +186,12 @@ def test_factories_raise_for_streaming_and_missing_gpu(monkeypatch):
                                                          **kw)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(io, device="cuda")
-    assert ta.matrix.snp_unphased(io).device == torch.device("cpu")
+        # the default is the card, so without one it raises too
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(io)
+    m = ta.matrix.snp_unphased(io, device="cpu")
+    assert m.device == torch.device("cpu")
+    assert m._packed.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("cls", [ta.matrix.MatrixNaiveDense,
@@ -194,13 +199,16 @@ def test_factories_raise_for_streaming_and_missing_gpu(monkeypatch):
                                  ta.matrix.MatrixNaiveSNPPhasedAncestry])
 def test_matrix_classes_resolve_their_device(cls, monkeypatch):
     """A matrix class built with no device takes ``resolve_device``'s, as
-    the factories do: the card when there is one, never the CPU silently."""
+    the factories do: the card, which raises when there is none; never the
+    CPU silently.  ``device="cpu"`` gives the CPU."""
     arg = np.zeros((20, 6)) if cls is ta.matrix.MatrixNaiveDense \
         else _tiny_io()
     if torch.cuda.is_available():
         assert cls(arg).device == torch.device("cuda")
         return
-    assert cls(arg).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(arg)
+    assert cls(arg, device="cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     # resolved to "cuda": moving the data there fails in a CPU-only torch
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):

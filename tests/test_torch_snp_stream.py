@@ -196,7 +196,8 @@ def test_streamed_matches_inhbm_in_the_port(basil, panel):
     screening decisions: the same path at 1e-9."""
     _, tio, d = panel
     ts, _ = _port_fit(panel, False, device="cpu", **_PATH)
-    th = ta.grpnet(ta.matrix.snp_unphased(tio, streaming=False),
+    th = ta.grpnet(ta.matrix.snp_unphased(tio, streaming=False,
+                                          device="cpu"),
                    ta.glm.gaussian(d["y"]), device="cpu", **_PATH)
     _assert_paths(ts, th, 1e-9)
 
