@@ -29,6 +29,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "adelie_tpu_torch"
 SOURCES = (CSRC_DIR / "pin_kernels.cu", CSRC_DIR / "snp_kernels.cu")
+# included by the sources: part of the library's hash, never compiled alone
+HEADERS = (CSRC_DIR / "async_copy.cuh",)
 # -fmad=false: no contraction of a*b+c into one rounding, so every
 # operation of the kernels rounds as in their twins, and a kernel and its
 # twin take the same Gauss-Seidel path (same sweeps, same stops).
@@ -94,7 +96,7 @@ def _hash(sources, flags) -> str:
 
 
 def source_hash() -> str:
-    return _hash(SOURCES, NVCC_FLAGS + LINK_FLAGS)
+    return _hash(SOURCES + HEADERS, NVCC_FLAGS + LINK_FLAGS)
 
 
 def library_path() -> Path:

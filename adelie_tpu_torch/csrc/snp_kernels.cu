@@ -61,6 +61,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int SNP_THREADS = 256;
@@ -256,177 +258,299 @@ int launch_snp_mul(const void* packed, const void* u_pad, const void* impute,
 //   adelie_snp_mul_many_{f32,f64} replaces K5,
 //       adelie_tpu/matrix/_snp_pallas.py:snp_mul_many_pallas.
 //
-// What it computes: out[j, c] = sum_i x(j, i) ut[i, c] for j < rows, c < C,
-// with x(j, i) decoded as in K3 (a code 3 reads impute[j]).  ut is U^T, the
-// C residuals laid out sample-major: 16 ceil(nb / 4) rows of Cp values, zero
-// past the sample count n and past column C, so tail codes and padded
-// columns contribute nothing.  Cp is C rounded up to the block's column
-// width CN (8, 32 or 128 by C, see many_cols); the caller asks
-// adelie_snp_mul_many_cols for it.
+// What it computes: out[j, c] = sum_i x(j, i) U[c, i] for j < rows, c < C,
+// with x(j, i) decoded as in K3 (a code 3 reads impute[j]).  The residuals
+// come as the operand `ut`: U^T cut into Cp / CN column blocks of CN
+// columns, each block sample-major (n_pad rows of CN values, one sample a
+// row), zero past the sample count n and past column C, so tail codes and
+// padded columns contribute nothing.  CN is 2, 8, 32 or 64 by C
+// (many_cols), Cp is C rounded up to it (adelie_snp_mul_many_cols), and
+// n_pad = 64 ceil(nb / 16), whole stages of every row.
+// matrix/snp_kernels.py:many_operand builds it, once a pass on the streamed
+// path.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s FP32): it is a GEMM,
 // (rows x n) . (n x C), whose A operand is decoded from 2-bit codes as it is
-// loaded.  At the north-star tile (rows = 65,536, n = 100,000, C = 100) it
-// reads 1.64 GB (0.49 ms) and does 2 rows n C = 1.31e12 operations
-// (19.6 ms): bound by the FP32 operations, unlike K3 and K4.
+// loaded.  At the north-star tile (rows = 65,536, n = 100,000, C = 50) it
+// reads 1.66 GB (0.49 ms) and does 2 rows n C = 6.55e11 operations
+// (9.78 ms): bound by the FP32 operations, unlike K3 and K4.
 //
-// Design, simple first (wgmma, TMA rings and a persistent grid are later
-// work):
-//  * A block owns ROWS whole rows and CN columns and walks the byte axis
-//    itself: no atomics, no second pass.  For C <= 128 one block covers
-//    every column, so the packed bytes are read once; above, each column
-//    block re-reads them.
-//  * A step is one 4-byte word of each row (16 samples).  Thread t < ROWS
-//    loads row t's word (one load when rows are 4-byte aligned, the
-//    funnel-shift or byte-wise read of K3 when not), decodes its 16 codes
-//    with K3's exponent trick and per-word NA select, and stores them to
-//    shared memory once; the block stages the 16 x CN slice of ut beside
-//    them.  The next step's word and ut slice are loaded into registers
-//    before the current step's products, so their latency hides behind
-//    them.
-//  * Each thread keeps a TR x 8 register tile of outputs: a decoded code is
-//    read from shared memory once per 8 columns, a ut value once per TR
-//    rows.  Columns tx*4 .. +3 and CN/2 + tx*4 .. +3 keep the threads'
-//    shared loads on distinct banks.  Products use explicit fma, so the
-//    build's -fmad=false does not split them.
+// Order contract: every output is one fma chain over the samples in
+// ascending order, from zero, through Num<T>::fma (the build has
+// -fmad=false), in every column variant.  So a column's value does not
+// depend on C (the streamed driver's dry fit at C = 1 and its chunk check
+// at C = 50 meet the tie at lmda_max with the same bits), and the kernel is
+// bit-equal to its twin on integer inputs, whose sums are exact.
+//
+// Design, on the CUDA cores: tensor cores would change the numerics, and
+// on the north star the chunk pass waits on PCIe once K5 is under a tile's
+// copy time (about 32-38 ms, PERF.md has the times).
+//  * A block owns 256 whole rows and one column block and walks the sample
+//    axis itself: no atomics, no second pass, no split of the sample axis.
+//    Past 64 columns each column block re-reads and re-decodes the packed
+//    bytes (1.6 GB at the north-star tile, half a millisecond of HBM).  The
+//    column block is the grid's slow axis, so the blocks in flight share
+//    one column block of U^T in L2 (25.6 MB at n = 100,000).
+//  * A stage is 64 samples, 16 bytes of every row.  Thread t owns row t: it
+//    loads the row's four words of the next stage into registers while the
+//    current stage's products run (a stage is thousands of cycles, far
+//    more than a load's latency), with K3's one-load, funnel-shift or
+//    byte-wise read by the row's alignment, and decodes them with K3's
+//    exponent trick and per-word NA select.
+//  * The stage's slice of the column block of U^T is one contiguous run of
+//    64 CN values.  Thread 0 fetches it with one bulk copy (TMA) into a
+//    ring of RING stages, each completing on its own mbarrier
+//    (async_copy.cuh), RING stages ahead of the products; one barrier a
+//    stage frees a slot.
+//  * Thread (tx, ty) keeps a TR x TC register tile of outputs over CG
+//    column groups, TR = CG (CN = CG TC): 8 x 8 at CN = 64, 4 x 8 at 32.
+//    The block's decoded codes go through a 64 x 256 tile of shared
+//    memory (one more barrier a stage); per sample a thread reads TR codes
+//    and TC U^T values in 16-byte loads and does TR TC fmas.  Columns
+//    tx*TC/2 .. and CN/2 + tx*TC/2 .. keep a warp's loads of U^T on
+//    distinct banks.
+//  * At CN = 2 and 8 (C <= 8: the streamed driver's set-up and dry fits)
+//    a thread owns a whole row, TR = 1, and its codes go from registers
+//    straight into its TC products: no shared tile, no second barrier.
+//    With so few columns the decode is most of the work, and a store, a
+//    load and a barrier a code would cost more than the products.
+//  * Shared memory at CN = 64: 64 KB of codes and RING x 16 KB of U^T in
+//    float32 (RING = 4), 128 KB and 2 x 32 KB in float64: one block an SM.
 
-constexpr int MANY_THREADS = 256;
-constexpr int MANY_KS = 16;  // samples a step: one 4-byte word of a row
+constexpr int MANY_THREADS = 256;  // the rows a block owns, one a thread
+constexpr int MANY_KS = 64;        // samples a stage: 16 bytes of a row
+constexpr int MANY_WORDS = MANY_KS / 16;
 
-template <typename T, int TR, int CG, bool ALIGNED>
+// U^T stages in flight
+template <typename T> constexpr int MANY_RING = sizeof(T) == 4 ? 4 : 2;
+
+// dynamic shared memory of a block: the decoded codes, the U^T ring and its
+// mbarriers
+template <typename T, int CG, int TC>
+constexpr int many_smem_bytes() {
+  return ((CG == 1 ? 0 : MANY_KS * MANY_THREADS) +
+          MANY_RING<T> * MANY_KS * CG * TC) *
+             (int)sizeof(T) +
+         MANY_RING<T> * (int)sizeof(uint64_t);
+}
+
+// N values at p in shared memory into v, in 16-byte loads when N fills
+// whole vectors (p is then 16-byte aligned; 8-byte for two floats)
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z;
+      v[4 * i + 3] = x.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void lds(const double* p, double* v) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const double2 x = reinterpret_cast<const double2*>(p)[i];
+      v[2 * i] = x.x; v[2 * i + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+
+// the 16 samples of a row's word x as values: sample q sits at bits 2 q,
+// byte q / 4 of plane q % 4; a code 3 (NA) reads imp
+template <typename T>
+__device__ __forceinline__ void decode_word(uint32_t x, T imp, T* v) {
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const uint32_t plane = (x >> (2 * l)) & 0x03030303u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[4 * k + l] = Num<T>::code_of_byte(plane, k);
+  }
+  const uint32_t na = x & (x >> 1) & 0x55555555u;
+  if (na) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      if ((na >> (2 * q)) & 1u) v[q] = imp;
+  }
+}
+
+template <typename T, int CG, int TC, bool ALIGNED>
 __global__ void __launch_bounds__(MANY_THREADS)
 snp_mul_many_kernel(const uint8_t* __restrict__ packed,
                     const T* __restrict__ ut, const T* __restrict__ impute,
-                    T* __restrict__ out, int64_t p, int64_t nb, int64_t C,
-                    int64_t Cp) {
-  constexpr int RG = MANY_THREADS / CG;  // row groups of TR rows
-  constexpr int ROWS = RG * TR;          // rows a block owns
-  constexpr int CN = CG * 8;             // columns a block owns
-  constexpr int HALF = CN / 2;
-  constexpr int B_LD = (MANY_KS * CN + MANY_THREADS - 1) / MANY_THREADS;
-  static_assert(ROWS <= MANY_THREADS, "one loading thread a row");
-  __shared__ __align__(16) T as[MANY_KS][ROWS];
-  __shared__ __align__(16) T bs[MANY_KS][CN];
+                    T* __restrict__ out, int64_t p, int64_t nb, int64_t C) {
+  constexpr int TR = CG;          // rows a thread owns
+  constexpr int CN = TC * CG;     // columns a block owns
+  constexpr int HALF = CN / 2, TH = TC / 2;
+  constexpr int RING = MANY_RING<T>;
+  constexpr int STAGE = MANY_KS * CN;  // U^T values a stage
+  constexpr unsigned STAGE_BYTES = STAGE * sizeof(T);
+  static_assert((MANY_THREADS / CG) * TR == MANY_THREADS, "a row a thread");
+  extern __shared__ __align__(16) unsigned char smem_many[];
+  // [MANY_KS][MANY_THREADS] codes (none when a thread owns a whole row),
+  // then [RING][MANY_KS][CN] of U^T
+  T* as = reinterpret_cast<T*>(smem_many);
+  T* bs = as + (CG == 1 ? 0 : MANY_KS * MANY_THREADS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + RING * STAGE);
 
   const int tid = threadIdx.x;
   const int tx = tid % CG, ty = tid / CG;
-  const int64_t j0 = (int64_t)blockIdx.x * ROWS;
-  const int64_t c0 = (int64_t)blockIdx.y * CN;
-  const int rows = (int)(p - j0 < ROWS ? p - j0 : ROWS);
-  const int64_t nw = (nb + 3) >> 2;
+  const int64_t j0 = (int64_t)blockIdx.x * MANY_THREADS;
+  const int rows = (int)(p - j0 < MANY_THREADS ? p - j0 : MANY_THREADS);
+  const int64_t nst = (nb + 15) >> 4;  // stages
+  // this block's column block of the operand: 64 nst rows of CN values
+  const T* utb = ut + (int64_t)blockIdx.y * (MANY_KS * nst) * CN;
 
-  // thread tid < ROWS loads row tid; rows past p re-read row j0, and their
-  // sums are never written
-  const bool loader = tid < ROWS;
+  // thread tid loads and decodes row tid; rows past p re-read row j0, and
+  // their sums are never written
   const int64_t row0 = (j0 + (tid < rows ? tid : 0)) * nb;
-  const T imp = loader && tid < rows ? impute[j0 + tid] : T(0);
+  const T imp = tid < rows ? impute[j0 + tid] : T(0);
 
-  auto load_word = [&](int64_t w) -> uint32_t {
-    if (!loader) return 0u;
-    const int64_t pos = 4 * w;
-    if (ALIGNED)
-      return __ldg(reinterpret_cast<const uint32_t*>(packed + row0) + w);
-    if (pos >= 4 && pos + 8 <= nb) return row_word(packed, row0, pos);
-    return row_word_edge(packed, row0, pos, nb);
-  };
-  auto load_b = [&](int64_t w, T* ub) {
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+    for (int i = 0; i < RING && i < nst; ++i) {
+      mbar_expect_tx(&full[i], STAGE_BYTES);
+      bulk_copy(bs + i * STAGE, utb + (int64_t)i * STAGE, STAGE_BYTES,
+                &full[i]);
+    }
+  }
+  __syncthreads();  // the mbarriers are initialised
+
+  // the four words of row tid in stage s; bytes past the row read as zero
+  auto load_stage = [&](int64_t s, uint32_t* w) {
 #pragma unroll
-    for (int i = 0; i < B_LD; ++i) {
-      const int idx = tid + i * MANY_THREADS;
-      if (idx < MANY_KS * CN)
-        ub[i] = __ldg(ut + (MANY_KS * w + idx / CN) * Cp + c0 + idx % CN);
+    for (int q = 0; q < MANY_WORDS; ++q) {
+      const int64_t pos = 16 * s + 4 * q;
+      if (ALIGNED)
+        w[q] = pos < nb ? __ldg(reinterpret_cast<const uint32_t*>(
+                              packed + row0 + pos))
+                        : 0u;
+      else if (pos >= 4 && pos + 8 <= nb)
+        w[q] = row_word(packed, row0, pos);
+      else
+        w[q] = row_word_edge(packed, row0, pos, nb);
     }
   };
 
-  T acc[TR][8];
+  T acc[TR][TC];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
+    for (int j = 0; j < TC; ++j) acc[i][j] = T(0);
 
-  uint32_t word = load_word(0);
-  T ub[B_LD];
-  load_b(0, ub);
-
-  for (int64_t w = 0; w < nw; ++w) {
-    if (loader) {
-      // sample q of the word sits at bits 2 q: byte q / 4 of plane q % 4
-      T v[MANY_KS];
+  uint32_t w[MANY_WORDS];
+  load_stage(0, w);
+  for (int64_t s = 0; s < nst; ++s) {
+    const int slot = (int)(s % RING);
+    const T* b = bs + slot * STAGE;
+    if constexpr (CG == 1) {
+      // a row a thread and all CN columns: its codes go from registers
+      // straight into the products
+      uint32_t cur[MANY_WORDS];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const uint32_t plane = (word >> (2 * l)) & 0x03030303u;
+      for (int q = 0; q < MANY_WORDS; ++q) cur[q] = w[q];
+      if (s + 1 < nst) load_stage(s + 1, w);
+      mbar_wait(&full[slot], (unsigned)(s / RING) & 1u);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) v[4 * k + l] = Num<T>::code_of_byte(plane, k);
+      for (int q = 0; q < MANY_WORDS; ++q) {
+        T v[16];
+        decode_word<T>(cur[q], imp, v);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          T bv[TC];
+          lds<TC>(b + (16 * q + i) * CN, bv);
+#pragma unroll
+          for (int j = 0; j < TC; ++j)
+            acc[0][j] = Num<T>::fma(v[i], bv[j], acc[0][j]);
+        }
       }
-      const uint32_t na = word & (word >> 1) & 0x55555555u;
-      if (na) {
+    } else {
 #pragma unroll
-        for (int q = 0; q < MANY_KS; ++q)
-          if ((na >> (2 * q)) & 1u) v[q] = imp;
+      for (int q = 0; q < MANY_WORDS; ++q) {
+        T v[16];
+        decode_word<T>(w[q], imp, v);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          as[(16 * q + i) * MANY_THREADS + tid] = v[i];
       }
+      if (s + 1 < nst) load_stage(s + 1, w);
+      __syncthreads();  // the stage's codes are in `as`
+      mbar_wait(&full[slot], (unsigned)(s / RING) & 1u);
+#pragma unroll 8
+      for (int k = 0; k < MANY_KS; ++k) {
+        T av[TR], bv[TC];
+        lds<TR>(as + k * MANY_THREADS + ty * TR, av);
+        lds<TH>(b + k * CN + tx * TH, bv);
+        lds<TH>(b + k * CN + HALF + tx * TH, bv + TH);
 #pragma unroll
-      for (int q = 0; q < MANY_KS; ++q) as[q][tid] = v[q];
-    }
+        for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int i = 0; i < B_LD; ++i) {
-      const int idx = tid + i * MANY_THREADS;
-      if (idx < MANY_KS * CN) bs[idx / CN][idx % CN] = ub[i];
-    }
-    __syncthreads();
-    if (w + 1 < nw) {
-      word = load_word(w + 1);
-      load_b(w + 1, ub);
-    }
-#pragma unroll
-    for (int k = 0; k < MANY_KS; ++k) {
-      T a[TR], b[8];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) a[i] = as[k][ty * TR + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = bs[k][tx * 4 + j];
-        b[4 + j] = bs[k][HALF + tx * 4 + j];
+          for (int j = 0; j < TC; ++j)
+            acc[i][j] = Num<T>::fma(av[i], bv[j], acc[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = Num<T>::fma(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+    __syncthreads();  // `as` and the slot are read
+    if (tid == 0 && s + RING < nst) {
+      fence_proxy_async();
+      mbar_expect_tx(&full[slot], STAGE_BYTES);
+      bulk_copy(bs + slot * STAGE, utb + (s + RING) * STAGE, STAGE_BYTES,
+                &full[slot]);
+    }
   }
 
+  const int64_t c0 = (int64_t)blockIdx.y * CN;
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int r = ty * TR + i;
     if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t c = c0 + (j < 4 ? tx * 4 + j : HALF + tx * 4 + j - 4);
+    for (int j = 0; j < TC; ++j) {
+      const int64_t c = c0 + (j < TH ? tx * TH + j : HALF + tx * TH + j - TH);
       if (c < C) out[(j0 + r) * C + c] = acc[i][j];
     }
   }
 }
 
-// The column width CN a block owns for C residuals (the wrapper pads ut to
-// a multiple of it): 8 for C <= 8 (256 rows a block, one output row a
-// thread), 32 for C <= 32 (256 rows), else 128 (64 rows).
-int64_t many_cols(int64_t C) { return C <= 8 ? 8 : C <= 32 ? 32 : 128; }
+// The column width CN a block owns for C residuals (the operand is padded
+// to a multiple of it): 2 for C <= 2 (the streamed driver's set-up and dry
+// fits), 8 for C <= 8, 32 for C <= 32, else 64, in column blocks of 64
+// past that.  At C = 50 and 100 the products are 1.28x those needed.
+int64_t many_cols(int64_t C) {
+  return C <= 2 ? 2 : C <= 8 ? 8 : C <= 32 ? 32 : 64;
+}
 
-template <typename T, int TR, int CG>
+// CG x TC: column groups of threads x columns a thread (CN = CG TC)
+template <typename T, int CG, int TC>
 int launch_many_cfg(const void* packed, const void* ut, const void* impute,
                     void* out, int64_t p, int64_t nb, int64_t C, int64_t Cp,
                     cudaStream_t stream) {
-  constexpr int ROWS = MANY_THREADS / CG * TR;
-  const int64_t bx = (p + ROWS - 1) / ROWS;
-  const int64_t by = Cp / (CG * 8);
+  constexpr int smem = many_smem_bytes<T, CG, TC>();
+  const int64_t bx = (p + MANY_THREADS - 1) / MANY_THREADS;
+  const int64_t by = Cp / (CG * TC);
   if (bx > INT_MAX || by > 65535) return (int)cudaErrorInvalidValue;
   auto kernel = nb % 4 == 0 && (uintptr_t)packed % 4 == 0
-                    ? snp_mul_many_kernel<T, TR, CG, true>
-                    : snp_mul_many_kernel<T, TR, CG, false>;
-  kernel<<<dim3((unsigned)bx, (unsigned)by), MANY_THREADS, 0, stream>>>(
+                    ? snp_mul_many_kernel<T, CG, TC, true>
+                    : snp_mul_many_kernel<T, CG, TC, false>;
+  // above 48 KB a block's dynamic shared memory must be opted into (on the
+  // current device: set at every launch, it costs a microsecond)
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((unsigned)bx, (unsigned)by), MANY_THREADS, smem, stream>>>(
       (const uint8_t*)packed, (const T*)ut, (const T*)impute, (T*)out, p, nb,
-      C, Cp);
+      C);
   return (int)cudaGetLastError();
 }
 
@@ -436,13 +560,17 @@ int launch_snp_mul_many(const void* packed, const void* ut, const void* impute,
                         int64_t Cp, void* stream) {
   if (p < 1 || nb < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t cn = many_cols(C);
-  if (Cp != (C + cn - 1) / cn * cn) return (int)cudaErrorInvalidValue;
+  // the bulk copies need a 16-byte aligned operand
+  if (Cp != (C + cn - 1) / cn * cn || (uintptr_t)ut % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cn == 2)
+    return launch_many_cfg<T, 1, 2>(packed, ut, impute, out, p, nb, C, Cp, s);
   if (cn == 8)
-    return launch_many_cfg<T, 1, 1>(packed, ut, impute, out, p, nb, C, Cp, s);
+    return launch_many_cfg<T, 1, 8>(packed, ut, impute, out, p, nb, C, Cp, s);
   if (cn == 32)
-    return launch_many_cfg<T, 4, 4>(packed, ut, impute, out, p, nb, C, Cp, s);
-  return launch_many_cfg<T, 4, 16>(packed, ut, impute, out, p, nb, C, Cp, s);
+    return launch_many_cfg<T, 4, 8>(packed, ut, impute, out, p, nb, C, Cp, s);
+  return launch_many_cfg<T, 8, 8>(packed, ut, impute, out, p, nb, C, Cp, s);
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Counterpart of ``adelie_tpu/matrix/_snp_stream.py``.  The packed bytes
 (p, ceil(n/4)) uint8 stay in host memory and every full-matrix product
 sweeps tiles of ``tile_snps`` SNP rows through the device.  ``mul_many``
 computes ``X^T U_c`` for all C rows of ``U`` in one pass, one K5 launch
-(``snp_kernels.snp_mul_many``) a tile, so a whole lambda chunk's KKT
-gradients cost one pass over the bytes (``solver/streamed.py``).
+(``snp_kernels.snp_mul_many``) a tile on the kernel's operand, built once
+a pass, so a whole lambda chunk's KKT gradients cost one pass over the
+bytes (``solver/streamed.py``).
 ``sq_mul`` and ``tmul`` decode each tile with plain tensor code, as the JAX
 package leaves them to XLA; ``tmul`` visits only the tiles that hold a
 nonzero coefficient.  ``gather`` takes the rows on the host and decodes
@@ -234,8 +235,12 @@ class MatrixNaiveSNPUnphasedStreamed(MatrixNaiveBase):
                              f"{tuple(U.shape)}")
         out = torch.empty((self._cols, U.shape[0]), dtype=self.torch_dtype,
                           device=self.device)
+        # the tiles share n: K5's padded U^T is made once a pass
+        op = (snp_kernels.many_operand(U, self._nb)
+              if self.device.type == "cuda" else None)
         for s, e, tile in self._tiles():
-            out[s:e] = snp_kernels.snp_mul_many(tile, U, self._impute[s:e])
+            out[s:e] = snp_kernels.snp_mul_many(tile, U, self._impute[s:e],
+                                                operand=op)
         self.sweeps += 1
         return out
 

@@ -14,9 +14,10 @@ Counterpart of ``adelie_tpu/matrix/_snp_pallas.py``:
 ``2 (i % 4)``.  For a CUDA tensor each wrapper launches its kernel from
 ``csrc/snp_kernels.cu`` (built at first use, see ``_build.py``), or raises.
 K3 and K4 read a copy of ``u`` zero-padded to ``16 ceil(nb / 4)`` entries (a
-whole 4-byte word of every row), K5 a copy of ``U^T`` padded the same way
-in samples and to its block's column width in residuals, so the tail
-codes past ``n`` contribute nothing; ``packed`` is never copied.  For a CPU
+whole 4-byte word of every row), K5 its operand, ``U^T`` in column blocks
+padded to ``64 ceil(nb / 16)`` samples and to the block's column width
+(``many_operand``), so the tail codes past ``n`` contribute nothing;
+``packed`` is never copied.  For a CPU
 tensor each wrapper runs its twin, ``snp_mul_ref``, ``snp_mul_no_na_ref``
 or ``snp_mul_many_ref``: blocks of ``REF_BLOCK`` rows decoded and
 multiplied by one ``torch.matmul`` each, as the JAX package's XLA path
@@ -34,6 +35,10 @@ from ..configs import matmul_precision
 REF_BLOCK = 2048
 
 launches = {"snp_mul": 0, "snp_mul_no_na": 0, "snp_mul_many": 0}
+
+# samples of a K5 stage: 16 bytes of every row (MANY_KS in
+# csrc/snp_kernels.cu)
+MANY_STAGE = 64
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -101,22 +106,58 @@ def _launch(name, packed, u, impute, p, nb, n):
     return out
 
 
-def _launch_many(packed, U, impute, p, nb, n):
+def many_block_cols(C):
+    """The column width of K5's blocks for C residuals (``many_cols`` in
+    ``csrc/snp_kernels.cu``): 2, 8, 32, or 64 in column blocks."""
+    return 2 if C <= 2 else 8 if C <= 8 else 32 if C <= 32 else 64
+
+
+def _many_shape(C, nb):
+    cn = many_block_cols(C)
+    return (C + cn - 1) // cn, MANY_STAGE * ((nb + 15) // 16), cn
+
+
+def many_operand(U, nb):
+    """K5's operand for ``U`` (C, n) and packed rows of ``nb`` bytes: U^T
+    cut into column blocks of ``many_block_cols(C)`` columns, each
+    sample-major, padded with zeros to ``MANY_STAGE * ceil(nb / 16)``
+    samples (whole 16-byte stages of every row) and to a whole block of
+    columns.  Shape (Cp / CN, n_pad, CN), on U's device; it depends on
+    ``packed`` only through ``nb``, so a streamed pass builds it once for
+    all its tiles."""
+    C, n = U.shape
+    cn = many_block_cols(C)
+    op = torch.zeros(_many_shape(C, nb), dtype=U.dtype, device=U.device)
+    for b in range(op.shape[0]):
+        blk = U[b * cn:(b + 1) * cn]
+        op[b, :n, :blk.shape[0]] = blk.T
+    return op
+
+
+def _launch_many(packed, U, impute, operand, p, nb):
     from .. import _build
 
     lib = _build.load()
     C = U.shape[0]
-    Cp = lib.adelie_snp_mul_many_cols(C)
-    # U^T, sample-major: 16 rows per 4-byte word of a row, Cp columns (C
-    # rounded up to the kernel's column width)
-    ut = torch.zeros((16 * ((nb + 3) // 4), Cp), dtype=U.dtype,
-                     device=U.device)
-    ut[:n, :C] = U.T
+    if operand is None:
+        operand = many_operand(U, nb)
+    else:
+        want = _many_shape(C, nb)
+        if (tuple(operand.shape) != want or operand.dtype != U.dtype
+                or operand.device != packed.device
+                or not operand.is_contiguous()):
+            raise ValueError(
+                f"snp_mul_many: operand must be many_operand(U, {nb}), "
+                f"{want} of {U.dtype} on {packed.device}, contiguous; got "
+                f"{tuple(operand.shape)} of {operand.dtype} on "
+                f"{operand.device}")
+    # the kernel refuses a Cp other than its own adelie_snp_mul_many_cols(C)
+    Cp = operand.shape[0] * operand.shape[2]
     out = torch.empty((p, C), dtype=U.dtype, device=U.device)
     fn = getattr(lib, f"adelie_snp_mul_many_{_SUFFIX[U.dtype]}")
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(packed.data_ptr(), ut.data_ptr(), impute.data_ptr(),
+        code = fn(packed.data_ptr(), operand.data_ptr(), impute.data_ptr(),
                   out.data_ptr(), p, nb, C, Cp, stream)
     _build.check(lib, code, "snp_mul_many")
     launches["snp_mul_many"] += 1
@@ -139,14 +180,17 @@ def snp_mul_no_na(packed, u):
     return _launch("snp_mul_no_na", packed, u, None, p, nb, n)
 
 
-def snp_mul_many(packed, U, impute):
-    """K5: ``decode(packed) @ U^T`` with code 3 -> ``impute[j]``; (p, C)."""
+def snp_mul_many(packed, U, impute, operand=None):
+    """K5: ``decode(packed) @ U^T`` with code 3 -> ``impute[j]``; (p, C).
+    ``operand``, ``many_operand(U, nb)`` built by a caller that multiplies
+    many tiles by one ``U``, saves the kernel's copy of it; the twin takes
+    ``U`` and ignores it."""
     if impute is None:
         raise TypeError("snp_mul_many: impute is required")
-    p, nb, n = _check("snp_mul_many", packed, U, impute, u_dims=2)
+    p, nb, _ = _check("snp_mul_many", packed, U, impute, u_dims=2)
     if packed.device.type == "cpu":
         return snp_mul_many_ref(packed, U, impute)
-    return _launch_many(packed, U, impute, p, nb, n)
+    return _launch_many(packed, U, impute, operand, p, nb)
 
 
 def snp_mul_ref(packed, u, impute):

@@ -44,13 +44,16 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     then K4's times as K3's;
 11. a ``.snpdat`` file written and read by ``adelie_tpu_torch.io``, fitted
     in float64 on "cuda" and on "cpu";
-12. K5 ``snp_mul_many`` against its twin: float checks at eight (p, n, C)
-    (every nb % 4, C from 1 to 200 across the kernel's 8-, 32- and
-    128-column variants, tensors starting unaligned) in float32 and
-    float64; exact checks with integer inputs at a north-star tile
-    (65,536 x 100,000) for C in {1, 2, 20, 50, 100}, the C the path uses
-    among them; the same through the streamed ``mul_many`` over four
-    tiles for C in {2, 20, 100};
+12. K5 ``snp_mul_many`` against its twin: float checks at fifteen
+    (p, n, C) (every nb % 4, C from 1 to 200 on both sides of every
+    boundary of the kernel's 2-, 8-, 32- and 64-column variants and of its
+    column blocks, C = 50 and 100 among them, tensors starting unaligned)
+    in float32 and float64; exact checks with integer inputs at a
+    north-star tile (65,536 x 100,000) for C in {1, 2, 20, 50, 100} and on
+    both sides of each boundary; on float inputs at that tile, each column
+    bit-equal across C in {1, 2, 50, 100, 129}; the wrapper's column
+    widths against the library's; the same exact checks through the
+    streamed ``mul_many`` over four tiles for C in {2, 20, 100};
 13. the host-streamed path against the in-device one: phase 9's GWAS
     panel and phase 11's ``.snpdat`` problem (``tile_snps=256``, a ragged
     last tile) fitted streamed on "cuda", with the speculative union off,
@@ -59,9 +62,12 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     glm.gaussian(y))`` over 1,000,000 SNPs x 100,000 samples (25 GB packed
     in host memory; benchmark/north_star_data.py's panel, made here), 50
     lambdas, float32, one warm-up fit, one timed, one profiled, a KKT
-    check in float64 from one plain pass over the panel, and K5's times on
-    its first tile.  The panel is cut in whole tiles, and the cut printed,
-    if the host's available memory cannot hold it and 16 GB more.
+    check in float64 from one plain pass over the panel, one chunk pass
+    (``mul_many`` at the path's C) against a copy-only pass, K5's device
+    time by variant against the tile copies' in the profiled fit, and
+    K5's times on its first tile at C in {1, 2, 50, 100}.  The panel is cut in whole tiles, and the cut
+    printed, if the host's available memory cannot hold it and 16 GB
+    more.
 
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 6's
@@ -946,35 +952,89 @@ def stream_kkt_check(what, io, y, state, block=2048, tile=NS_TILE):
     return worst
 
 
-def many_timing(tile, n, C, imp, seed):
-    """K5's, its twin's and torch.matmul's time on one device tile at C
-    residuals; the matmul multiplies the decoded float32 tile, cut to half
-    its rows (and said so) if it does not fit."""
+def many_timing(tile, n, Cs, imp, seed):
+    """For each C in ``Cs``: K5's, its twin's and torch.matmul's time on one
+    device tile, and the time to build K5's operand (once a streamed
+    pass; K5 is timed on it, as the pass launches it).  The matmul
+    multiplies the decoded float32 tile, decoded once and cut to half its
+    rows (and said so) if it does not fit."""
     import torch
 
     from adelie_tpu_torch.matrix import snp_kernels as sk
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    U = torch.randn((C, n), device=DEV, generator=gen)
-    ms = cuda_ms(lambda: sk.snp_mul_many(tile, U, imp), reps=5)
-    plain_ms = cuda_ms(lambda: sk.snp_mul_many_ref(tile, U, imp), reps=1)
+    U = torch.randn((max(Cs), n), device=DEV, generator=gen)
+    res = {}
+    for C in Cs:
+        Uc = U[:C]
+        op_ms = cuda_ms(lambda: sk.many_operand(Uc, tile.shape[1]), reps=5)
+        op = sk.many_operand(Uc, tile.shape[1])
+        ms = cuda_ms(lambda: sk.snp_mul_many(tile, Uc, imp, operand=op),
+                     reps=5)
+        plain_ms = cuda_ms(lambda: sk.snp_mul_many_ref(tile, Uc, imp),
+                           reps=1)
+        b_ms, b_by = many_bound(tile.shape[0], n, C)
+        res[C] = dict(ms=ms, plain_ms=plain_ms, operand_ms=op_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+        del op
     T = tile.shape[0]
     note = ""
     try:
         Xd = decoded_f32(tile, n, imp)
     except torch.cuda.OutOfMemoryError:
         T //= 2
-        note = (f" (torch.matmul timed at {T} x {n} x {C}: the decoded "
-                "tile did not fit)")
+        note = (f" (torch.matmul timed at {T} x {n}: the decoded tile did "
+                "not fit)")
         torch.cuda.empty_cache()
         Xd = decoded_f32(tile[:T], n, imp[:T])
-    Ut = U.T.contiguous()
-    library_ms = cuda_ms(lambda: torch.matmul(Xd, Ut), reps=5)
+    for C in Cs:
+        Ut = U[:C].T.contiguous()
+        res[C]["library_ms"] = cuda_ms(lambda: torch.matmul(Xd, Ut), reps=5)
+        res[C]["note"] = note
     del Xd
     torch.cuda.empty_cache()
-    b_ms, b_by = many_bound(tile.shape[0], n, C)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, note=note,
-                bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
+def many_cross_c(T, n, Cs, seed):
+    """Float inputs at one tile (uniform bytes, a quarter of the codes NA;
+    normal U, uniform impute): column c of ``snp_mul_many(tile, U[:C])``
+    has the same bits at every C in ``Cs``, the property the streamed
+    driver's tie at ``lmda_max`` relies on."""
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    packed = card_bytes(T, (n + 3) // 4, gen)
+    U = torch.randn((max(Cs), n), device=DEV, generator=gen)
+    imp = 2 * torch.rand(T, device=DEV, generator=gen)
+    outs = {C: sk.snp_mul_many(packed, U[:C], imp).view(torch.int32)
+            for C in Cs}
+    for a in Cs:
+        for b in Cs:
+            if a < b and not torch.equal(outs[a], outs[b][:, :a]):
+                bad = int((outs[a] != outs[b][:, :a]).sum())
+                fail(f"K5 T={T} n={n}: {bad} entries of the first {a} "
+                     f"columns differ between C={a} and C={b}")
+
+
+def chunk_pass_line(prof, passes):
+    """From the profiled north-star fit: each K5 variant's launches and
+    device time (the chunk pass's C takes its own variant, the set-up and
+    dry fits' C <= 2 another), beside one pass's share of the tile copies'
+    device time."""
+    if prof is None or prof[1] <= 0:
+        return "chunk pass against the copies: device time not measured"
+    events = prof[2]
+    k5 = "; ".join(f"{k[k.index('snp_mul_many'):].split('(')[0]} x{c} "
+                   f"{ms:.1f} ms"
+                   for k, (c, ms) in events.items() if "snp_mul_many" in k)
+    copies = sum(ms for k, (_, ms) in events.items()
+                 if k.startswith("Memcpy HtoD"))
+    return (f"K5 by variant in the profiled fit: {k5}; tile copies "
+            f"{copies:.1f} ms (H2D) over {passes} passes, "
+            f"{copies / max(passes, 1):.1f} ms a pass")
 
 
 def main():
@@ -1310,9 +1370,13 @@ def main():
     # 12. K5 against its twin
     from adelie_tpu_torch.configs import set_configs
 
+    # column variants of 2, 8, 32 and 64 columns, column blocks past 64:
+    # C on both sides of each boundary, and the chunk pass's 50 and 100
     many_shapes = ((10, 9, 3), (300, 257, 8), (513, 1000, 1),
                    (513, 4091, 100), (700, 1024, 33), (257, 2000, 200),
-                   (1001, 3333, 20), (129, 130, 9))
+                   (1001, 3333, 20), (129, 130, 9), (300, 1001, 2),
+                   (300, 1001, 32), (777, 2050, 50), (513, 999, 64),
+                   (260, 1503, 65), (129, 4097, 128), (300, 600, 129))
     errs = [many_float_case(p, n, C, dtype, seed=p + n + C)
             for p, n, C in many_shapes
             for dtype in (torch.float32, torch.float64)]
@@ -1322,12 +1386,31 @@ def main():
           f"starting unaligned), f32 and f64: max |diff| {max(errs):.3e}, "
           "within 1e-4 / 1e-12 of (|X|^T|U_c|)_j")
     # the north-star path runs C = 2 (setup), 1 (dry fits) and the chunk's
-    # lambda count (up to 50); 20 takes the 32-column variant
-    exact_cs = (1, 2, 20, 50, 100)
+    # lambda count (up to 50); the rest sit on both sides of each boundary
+    exact_cs = (1, 2, 3, 8, 9, 20, 32, 33, 50, 64, 65, 100, 128, 129)
     many_exact_tile(NS_TILE, NS_N, exact_cs, seed=12)
     phase("K5", f"integer inputs at the north-star tile T={NS_TILE} "
           f"n={NS_N} C in {exact_cs}, all four codes, f32: bit-equal to the "
           "twin")
+    cross_cs = (1, 2, 50, 100, 129)
+    many_cross_c(NS_TILE, NS_N, cross_cs, seed=14)
+    phase("K5", f"float inputs at the north-star tile, C in {cross_cs}: "
+          "every column bit-equal across C")
+    lib = _build.load()
+    cols = [C for C in range(1, 300) if lib.adelie_snp_mul_many_cols(C)
+            != -(-C // sk.many_block_cols(C)) * sk.many_block_cols(C)]
+    if cols:
+        fail(f"K5: the wrapper's and the library's column widths differ at "
+             f"C in {cols[:8]}")
+    pk12 = card_bytes(300, 250, torch.Generator(device=DEV).manual_seed(3))
+    U12 = torch.ones((3, 1000), device=DEV)
+    try:
+        sk.snp_mul_many(pk12, U12, torch.zeros(300, device=DEV),
+                        operand=sk.many_operand(U12, 300))
+    except ValueError:
+        pass
+    else:
+        fail("K5 took an operand made for other rows")
     stream_cs = (2, 20, 100)
     p12, tiles12 = stream_exact_case(ad, 20_000, stream_cs, seed=13)
     phase("K5", f"streamed mul_many over {tiles12} tiles (p={p12}, n=20000, "
@@ -1423,7 +1506,9 @@ def main():
     kkt_s = float(np.sum(st14.benchmark["kkt"]))
     hits = len(set(st14.betas[-1].tocoo().col.tolist())
                & set(causal14.tolist()))
+    sweeps0 = Xm14.sweeps
     prof14 = profile_fit(ad, Xm14, y14, **kw14)
+    passes14 = Xm14.sweeps - sweeps0
     t0 = time.perf_counter()
     kkt14 = stream_kkt_check("north-star fit", io14, y14, st14)
     kktc_s = time.perf_counter() - t0
@@ -1441,20 +1526,34 @@ def main():
           f"{hits}/60, devs[-1] {devs14[-1]:.4f}, worst KKT {kkt14:.2e} "
           f"lambda (one plain f64 pass, {kktc_s:.1f} s) | {card}")
     phase("north-star", f"{profile_line(prof14)} | {card}")
-    tile14 = Xm14._host[:NS_TILE].to("cuda")
+    # the chunk pass, K5 at the path's C on every tile, against the tile
+    # copies it should hide under
     C14 = max(L14, 1)
-    snp_time["snp_mul_many"] = many_timing(tile14, NS_N, C14,
-                                           Xm14._impute[:NS_TILE], seed=140)
-    r = snp_time["snp_mul_many"]
-    c1_ms = cuda_ms(lambda: sk.snp_mul_many(tile14, u14, Xm14._impute[
-        :NS_TILE]), reps=5)
-    phase("K5", f"on north-star tile 0, T={NS_TILE} n={NS_N} C={C14} f32: "
-          f"kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, bound "
-          f"{r['bound_ms']:.3f} ms ({r['bound_by']}), torch.matmul on the "
-          f"decoded f32 tile {r['library_ms']:.3f} ms{r['note']}; at C=1 "
-          f"{c1_ms:.3f} ms; launches x C={C14} ms "
-          f"{counts14['snp_mul_many'] * r['ms']:.1f} ms (an upper bound: "
-          f"setup and dry-fit passes run C <= 2) | {card}")
+    gen14 = torch.Generator(device="cuda").manual_seed(141)
+    U14 = torch.randn((C14, NS_N), device="cuda", generator=gen14) / NS_N
+    chunk_s, _ = host_ms(lambda: Xm14.mul_many(U14))
+    phase("north-star", f"a chunk pass (mul_many at C={C14}) "
+          f"{chunk_s / 1e3:.3f} s against the copy-only pass {copy_s:.3f} s;"
+          f" {chunk_pass_line(prof14, passes14)} | {card}")
+    del U14
+    tile14 = Xm14._host[:NS_TILE].to("cuda")
+    many_cs = (1, 2, 50, 100)
+    t14 = many_timing(tile14, NS_N, many_cs, Xm14._impute[:NS_TILE],
+                      seed=140)
+    for C, r in t14.items():
+        phase("K5", f"on north-star tile 0, T={NS_TILE} n={NS_N} C={C} f32: "
+              f"kernel {r['ms']:.3f} ms (operand, once a pass, "
+              f"{r['operand_ms']:.3f} ms), twin {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), torch.matmul"
+              f" on the decoded f32 tile {r['library_ms']:.3f} ms{r['note']}"
+              f" | {card}")
+    r = t14[50] if C14 == 50 else many_timing(
+        tile14, NS_N, (C14,), Xm14._impute[:NS_TILE], seed=140)[C14]
+    snp_time["snp_mul_many"] = dict(r, C=C14, ms_by_C={
+        C: t14[C]["ms"] for C in many_cs})
+    phase("K5", f"launches x C={C14} ms {counts14['snp_mul_many'] * r['ms']:.1f}"
+          f" ms (an upper bound: set-up and dry-fit passes run C <= 2) | "
+          f"{card}")
     del tile14, Xm14, io14, st14
     torch.cuda.empty_cache()
 
@@ -1502,6 +1601,9 @@ def main():
               ("snp_mul_many", "adelie_tpu/matrix/_snp_pallas.py:156",
                counts14["snp_mul_many"]))),
     ]}
+    # K5 at the chunk pass's C, and its times at every C measured
+    kernels["kernels"][-1].update(
+        {k: snp_time["snp_mul_many"][k] for k in ("C", "ms_by_C")})
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,6 +70,21 @@ def test_nvcc_command_names_both_kernel_sources():
     assert all("-fmad=false" in c and "-c" in c for c in compiles)
 
 
+def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):
+    """Both kernel sources include csrc/async_copy.cuh (the mbarrier and
+    bulk-copy helpers), so an edit of it must name a new library: a stale
+    one would otherwise be loaded."""
+    header = _build.CSRC_DIR / "async_copy.cuh"
+    assert _build.HEADERS == (header,)
+    for src in _build.SOURCES:
+        assert '#include "async_copy.cuh"' in src.read_text()
+    before = _build.library_path()
+    edited = tmp_path / header.name
+    edited.write_text(header.read_text() + "// an edit\n")
+    monkeypatch.setattr(_build, "HEADERS", (edited,))
+    assert _build.library_path() != before
+
+
 def test_bind_declares_k5_with_64_bit_and_pointer_arguments():
     """K5's entry points take (packed, ut, impute, out) as pointers, then
     (p, nb, C, Cp) as 64-bit ints and the stream as a pointer: a pointer

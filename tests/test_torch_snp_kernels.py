@@ -155,6 +155,38 @@ class _IO:
     cols = snps
 
 
+@pytest.mark.parametrize("C", [1, 3, 33, 65, 129])
+def test_k5_operand_layout_and_streamed_mul_many(C):
+    """``many_operand`` lays U^T out in column blocks of the kernel's width,
+    sample-major, zero past n and past C; the streamed ``mul_many`` on the
+    CPU, which builds no operand, still gives the twin's product on every
+    tile (five tiles of 16 rows, the last ragged) and launches nothing."""
+    p, n = 70, 37
+    nb = (n + 3) // 4
+    U = torch.from_numpy(np.random.default_rng(C).standard_normal((C, n)))
+    op = sk.many_operand(U, nb)
+    cn = sk.many_block_cols(C)
+    assert cn >= C or cn == 64
+    assert op.shape == ((C + cn - 1) // cn, sk.MANY_STAGE * ((nb + 15) // 16),
+                        cn) and op.dtype == U.dtype
+    # (n_pad, Cp): column b cn + j is column j of block b
+    flat = op.permute(1, 0, 2).reshape(op.shape[1], -1)
+    assert torch.equal(flat[:n, :C], U.T)
+    assert not flat[n:].any() and not flat[:, C:].any()
+
+    packed, _, impute = _inputs(p, n, seed=C)
+    io = _IO(packed, n, impute.astype(np.float64))
+    Xm = ta.matrix.snp_unphased(io, streaming=True, tile_snps=16,
+                                dtype=np.float64, device="cpu")
+    before = dict(sk.launches)
+    got = Xm.mul_many(U)
+    pk, imp = torch.from_numpy(packed), torch.from_numpy(io.impute)
+    assert Xm._ntiles == 5 and Xm.sweeps == 1 and sk.launches == before
+    for s in range(0, p, 16):
+        assert torch.equal(got[s:s + 16], sk.snp_mul_many_ref(
+            pk[s:s + 16], U, imp[s:s + 16]))
+
+
 @pytest.mark.parametrize("phased", [False, True])
 def test_twins_match_jax_xla_products_f64(phased):
     """Both classes' ``mul`` in float64: the port's twin against the JAX

@@ -23,7 +23,7 @@ from adelie_tpu_torch.configs import configs, set_configs
 from adelie_tpu_torch.matrix import snp_kernels as sk
 from adelie_tpu_torch.solver import pin_kernels as tk
 from adelie_tpu_torch.state import state_from_numpy
-from test_torch_grpnet import _WS_KEYS
+from test_torch_grpnet import _WS_KEYS, _assert_same_path
 
 torch.set_num_threads(1)
 
@@ -211,6 +211,30 @@ def test_streamed_f32_matches_jax_f32(basil, panel):
     ts = ta.grpnet(tm, ta.glm.gaussian(y, dtype=np.float32), **kw)
     assert ts.betas.dtype == np.float32
     _assert_paths(ts, js, 5e-6)
+
+
+@pytest.mark.parametrize("option", ["unpenalized", "offsets"])
+def test_streamed_unpenalized_groups_and_offsets(option, basil, panel):
+    """Unpenalized groups (penalty 0: screened and active from the start)
+    and ``offsets`` through both packages' streamed drivers under BASIL:
+    the bars of tests/test_torch_grpnet.py's
+    test_unpenalized_groups_and_offsets and the same number of passes."""
+    jio, tio, d = panel
+    n, p = 300, 120
+    kw = dict(lmda_path_size=12)
+    if option == "unpenalized":
+        pen = np.random.default_rng(6).uniform(0.5, 1.5, p)
+        pen[[2, 7]] = 0.0
+        kw["penalty"] = pen
+    else:
+        kw["offsets"] = np.random.default_rng(7).uniform(-0.5, 0.5, n)
+    jm, tm = _streamed(jio, tio, tile_snps=32)
+    js = ja.grpnet(jm, ja.glm.gaussian(d["y"]), **kw)
+    ts = ta.grpnet(tm, ta.glm.gaussian(d["y"]), **kw)
+    _assert_same_path(js, ts)
+    assert tm.sweeps == jm.sweeps
+    if option == "unpenalized":
+        assert (ts.betas.toarray()[:, [2, 7]] != 0).all()
 
 
 def test_warm_start_from_jax_streamed_fit(basil, panel, jax_fits):
