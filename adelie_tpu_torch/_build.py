@@ -184,8 +184,10 @@ def _bind(lib) -> None:
 
     ptr = c_void_p
     for suffix, real in (("f32", c_float), ("f64", c_double)):
+        # (12 pointers, S, G, l1, l2, tol, rsq, max_iters, stream)
         f = getattr(lib, f"adelie_pin_lasso_solve_{suffix}")
-        f.argtypes = [ptr] * 11 + [c_int, real, real, real, real, c_int, ptr]
+        f.argtypes = [ptr] * 12 + [c_int, c_int, real, real, real, real,
+                                   c_int, ptr]
         f.restype = c_int
         # (16 pointers, S, G, l1, l2, tol, rsq, max_iters, stream)
         f = getattr(lib, f"adelie_pin_lasso_solve_rows_{suffix}")
@@ -201,6 +203,8 @@ def _bind(lib) -> None:
         f = getattr(lib, f"adelie_snp_mul_many_{suffix}")
         f.argtypes = [ptr] * 4 + [c_int64] * 4 + [ptr]
         f.restype = c_int
+    lib.adelie_pin_lasso_solve_resident_rows.argtypes = [c_int, c_int]
+    lib.adelie_pin_lasso_solve_resident_rows.restype = c_int
     lib.adelie_snp_mul_many_cols.argtypes = [c_int64]
     lib.adelie_snp_mul_many_cols.restype = c_int64
     lib.adelie_cuda_error_string.argtypes = [c_int]

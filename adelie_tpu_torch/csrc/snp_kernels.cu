@@ -18,43 +18,55 @@
 // What it computes: out[j] = sum_i x(j, i) u_pad[i] for j < p, where row j
 // of `packed` (p x nb bytes, row-major, never copied or padded) holds
 // sample i in byte i / 4, bits 2 (i % 4); x(j, i) is the 2-bit code, except
-// that with HAS_NA a code 3 (NA) reads impute[j].  u_pad has 16 ceil(nb / 4)
-// entries, zero past the sample count n, so tail codes (a code 3 among
+// that with HAS_NA a code 3 (NA) reads impute[j].  u_pad has 256 ceil(nb /
+// 64) entries, zero past the sample count n, so tail codes (a code 3 among
 // them) contribute x * 0 = 0.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s FP32): bytes p nb + 4 (4 nb)
 // + 4 p (+ 4 p impute), operations 2 p n.  At the GWAS shape (p = 200,000,
 // n = 50,000: 2.5 GB of packed bytes) that is 0.75 ms of bytes against
 // 0.30 ms of operations: the kernel is bound by the packed bytes it reads.
-// What holds this first version above it is the decode: about 3.5 integer
-// and FP32 operations per code, 1.4e10 integer operations at the GWAS
-// shape, near 1 ms of the integer pipes alone (PERF.md has the times).
+// Decoding every code (a byte permute, an FADD and an FFMA a code, a
+// shift and mask every four: about 3.5 instructions a code) is 3.5e10
+// instructions at the GWAS shape, more than a millisecond of issue on 132
+// SMs, past that bound.
 //
-// Design against that bound:
-//  * A block owns WORD_ROWS whole rows and walks the byte axis itself, so a
-//    row's sum never leaves the block: no atomics, no second pass (the TPU
-//    kernel's revisited output block has no counterpart here).
-//  * Thread t reads 4-byte words t, t + 256, ... of each of its rows, all
-//    WORD_ROWS of them before decoding any: WORD_ROWS loads in flight a
-//    thread.  Row j starts at byte j nb, which is 4-byte aligned only when
-//    nb % 4 == 0 (a sample count n = 487,409 gives nb % 4 = 1).  Aligned
-//    rows read each word with one load.  Otherwise a row's word is read as
-//    the two aligned words it straddles, joined by one funnel shift by the
-//    row's offset, and a row's first word and its last one or two are
-//    read byte by byte, with bytes past the row read as zero, so that no
-//    load leaves the tensor.  The launch picks the load from the row
-//    alignment (the ALIGNED flag): the one-load path is the faster, and
-//    PERF.md has the times of both.  The decode is the same for both.
-//  * u is read once per block and column step (from L2) and used for all
-//    the block's rows in registers: its L2 traffic is about the packed
-//    bytes (f32), not 16x them as one pass per row would be.
-//  * A code becomes a float by the exponent trick: one byte permute puts it
-//    into the mantissa of 1.5 * 2^23, one subtract removes that; I2F runs
-//    at an eighth of the FP32 rate.  The products use explicit fma, exact
-//    for the codes, so the build's -fmad=false does not split them.
-//  * The NA test is one AND per word (x & x >> 1 & 0x55.. marks the code-3
-//    lanes); only a word that holds an NA takes the select.  It is compiled
-//    out for K4.
+// Design: one lookup in shared memory a byte, not four decodes.
+//  * A stage is G bytes of every row, 4 G samples.  For each stage the
+//    block builds a table from u: for byte value b and byte position g,
+//    T[b][g] = sum_k code_k(b) u[4 g + k], as T_lo[b & 15] + T_hi[b >> 4]
+//    (two samples a half), with a code 3 counted as 0 when HAS_NA, and
+//    beside it NA[b][g] = sum_k [code_k(b) = 3] u[4 g + k].  An entry (the
+//    value, or the pair (value, NA)) takes 256 / G bytes, so a table row is
+//    256 bytes and the table 64 KB: G = 64 for K4 in float32, 32 for K3 in
+//    float32 and K4 in float64, 16 for K3 in float64.  Then
+//    out[j] = value_j + impute[j] NA_j, and with integer inputs every sum
+//    is exact, so the kernel and its twin agree bit for bit.
+//  * A row's stage is read as G / 4 words by G / 4 neighbouring lanes.  A
+//    byte's lookup address is one byte permute, b 256 + g (256 / G)
+//    (the permute puts the byte above the lane's own offset byte); then
+//    one shared load and one FADD (two with NA): about 0.8 instructions a
+//    code for K4 and 1.1 for K3, and one 4-, 8- or 16-byte shared load a
+//    byte.  Each lane walks the four bytes of its word rotated by its own
+//    amount, so the 32 lanes of a warp (16 and 8 for 8- and 16-byte
+//    entries, the width of a shared-memory wavefront) read distinct banks
+//    whatever the byte values.
+//  * A block owns R = NW 1024 / G rows (NW = 16 words a lane a stage)
+//    and walks the byte axis
+//    itself, so a row's sum never leaves the block: no atomics, no second
+//    pass.  A stage's build costs about two instructions an entry, 256 G
+//    entries against R G bytes of lookups, a third to a half of the
+//    lookups' issue.
+//  * A lane loads its NW words of the next stage while the current stage
+//    is built and looked up: R G bytes of every block in flight.  Aligned
+//    rows (nb % 4 = 0) read a word with one load; others read the two
+//    aligned words it straddles, joined by one funnel shift, and a row's
+//    first word and its last one or two byte by byte, with bytes past the
+//    row read as zero, so that no load leaves the tensor.
+// On the card (PERF.md) the stages' builds and barriers, not the bytes,
+// set the time: K3 at the GWAS shape runs at about 2.4 times its bound,
+// and narrower stages (an NA half built only when a stage holds an NA,
+// 32 bytes a stage without it) measured slower, not faster.
 
 #include <cuda_runtime.h>
 
@@ -64,9 +76,6 @@
 #include "async_copy.cuh"
 
 namespace {
-
-constexpr int SNP_THREADS = 256;
-constexpr int WORD_ROWS = 16;  // rows a block owns
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -81,17 +90,6 @@ template <> struct Num<float> {
   static __device__ __forceinline__ float fma(float a, float b, float c) {
     return __fmaf_rn(a, b, c);
   }
-  // the 16 entries of u that 4-byte word w of a row meets
-  static __device__ __forceinline__ void load_u16(const float* u, int64_t w,
-                                                  float* v) {
-    const float4* q = reinterpret_cast<const float4*>(u) + 4 * w;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 x = __ldg(q + k);
-      v[4 * k] = x.x; v[4 * k + 1] = x.y; v[4 * k + 2] = x.z;
-      v[4 * k + 3] = x.w;
-    }
-  }
 };
 template <> struct Num<double> {
   // the same with 0x4338000000000000, 1.5 * 2^52
@@ -104,40 +102,7 @@ template <> struct Num<double> {
   static __device__ __forceinline__ double fma(double a, double b, double c) {
     return __fma_rn(a, b, c);
   }
-  static __device__ __forceinline__ void load_u16(const double* u, int64_t w,
-                                                  double* v) {
-    const double2* q = reinterpret_cast<const double2*>(u) + 8 * w;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const double2 x = __ldg(q + k);
-      v[2 * k] = x.x; v[2 * k + 1] = x.y;
-    }
-  }
 };
-
-// The block's WORD_ROWS row sums: reduce each thread's partials over the
-// block and write out[j0 + r] for r < rows.
-template <typename T>
-__device__ __forceinline__ void write_rows(const T* acc,
-                                           T (*part)[WORD_ROWS], T* out,
-                                           int64_t j0, int rows) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < WORD_ROWS; ++r) {
-    T s = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) part[warp][r] = s;
-  }
-  __syncthreads();
-  if ((int)threadIdx.x < rows) {
-    T s = T(0);
-#pragma unroll
-    for (int w = 0; w < SNP_THREADS / 32; ++w) s += part[w][threadIdx.x];
-    out[j0 + threadIdx.x] = s;
-  }
-}
 
 // Bytes pos .. pos + 3 of the row that starts at byte `row0` of `packed`,
 // read as the two aligned words they straddle joined by a funnel shift.
@@ -161,95 +126,215 @@ __device__ __forceinline__ uint32_t row_word_edge(
   return x;
 }
 
-// Word w of a row holds samples 16 w + q at bits 2 q.  An NA is first summed
-// as the code 3 and then corrected by (impute - 3) u, in a branch taken only
-// for words that hold one.
+constexpr int SNP_THREADS = 256;
+constexpr int NW = 16;  // words a lane a stage: rows a block NW RPS
+constexpr int TAB_BYTES = 256 * 256;  // a stage's table: 256 rows of 256 B
+
+// a table entry: the value, or the pair (value, NA sum)
+template <typename T, bool HAS_NA> struct Entry;
+template <> struct Entry<float, false> {
+  using type = float;
+  static __device__ __forceinline__ float value(float e) { return e; }
+  static __device__ __forceinline__ float na(float) { return 0.0f; }
+  static __device__ __forceinline__ float make(float v, float) { return v; }
+};
+template <> struct Entry<float, true> {
+  using type = float2;
+  static __device__ __forceinline__ float value(float2 e) { return e.x; }
+  static __device__ __forceinline__ float na(float2 e) { return e.y; }
+  static __device__ __forceinline__ float2 make(float v, float n) {
+    return make_float2(v, n);
+  }
+};
+template <> struct Entry<double, false> {
+  using type = double;
+  static __device__ __forceinline__ double value(double e) { return e; }
+  static __device__ __forceinline__ double na(double) { return 0.0; }
+  static __device__ __forceinline__ double make(double v, double) {
+    return v;
+  }
+};
+template <> struct Entry<double, true> {
+  using type = double2;
+  static __device__ __forceinline__ double value(double2 e) { return e.x; }
+  static __device__ __forceinline__ double na(double2 e) { return e.y; }
+  static __device__ __forceinline__ double2 make(double v, double n) {
+    return make_double2(v, n);
+  }
+};
+
+template <typename T, bool HAS_NA>
+struct TabShape {
+  static constexpr int ESZ = (int)sizeof(typename Entry<T, HAS_NA>::type);
+  static constexpr int G = 256 / ESZ;      // bytes of a row a stage
+  static constexpr int LPR = G / 4;        // lanes a row, a word each
+  static constexpr int RPW = 32 / LPR;     // rows of a warp a load
+  static constexpr int RPS = RPW * SNP_THREADS / 32;  // rows a block a load
+};
+
 template <typename T, bool HAS_NA, bool ALIGNED>
 __global__ void __launch_bounds__(SNP_THREADS, 2)
 snp_mul_kernel(const uint8_t* __restrict__ packed, const T* __restrict__ u_pad,
                const T* __restrict__ impute, T* __restrict__ out, int64_t p,
                int64_t nb) {
-  __shared__ T imp_s[WORD_ROWS];
-  __shared__ T part[SNP_THREADS / 32][WORD_ROWS];
+  using Ent = Entry<T, HAS_NA>;
+  using E = typename Ent::type;
+  using Sh = TabShape<T, HAS_NA>;
+  constexpr int ESZ = Sh::ESZ, G = Sh::G, LPR = Sh::LPR, RPW = Sh::RPW,
+                RPS = Sh::RPS;
+  constexpr int HQ = SNP_THREADS / G;  // threads that build one position
+  constexpr int NH = 16 / HQ;          // high nibbles a thread builds
+  extern __shared__ __align__(16) unsigned char tab[];
 
-  const int64_t j0 = (int64_t)blockIdx.x * WORD_ROWS;
-  const int rows = (int)(p - j0 < WORD_ROWS ? p - j0 : WORD_ROWS);
-  if (HAS_NA) {
-    const int t = threadIdx.x;
-    if (t < WORD_ROWS) imp_s[t] = t < rows ? impute[j0 + t] : T(0);
-    __syncthreads();
-  }
-  const int64_t nw = (nb + 3) >> 2;
-  // the first byte of row r of the block; rows past p re-read row j0, and
-  // their sums are never written
-  auto row0 = [&](int r) { return (j0 + (r < rows ? r : 0)) * nb; };
-
-  T acc[WORD_ROWS];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int rw = lane / LPR;  // the lane's row within the warp's load
+  const int jl = lane % LPR;  // its word within the row's stage
+  // Bank rotation: a shared-memory wavefront is two rows of G / 4 lanes;
+  // lane (rw & 1, jl) takes byte (k + kq) & 3 of its word at step k, so
+  // the wavefront's lanes read entries g = 4 jl + (k + kq) & 3 that are
+  // distinct modulo G / 2, on distinct banks.
+  const int kq = (jl / (G / 8) + 2 * (rw & 1)) & 3;
+  uint32_t cofs[4];  // the entry's byte offset in a table row at step k
 #pragma unroll
-  for (int r = 0; r < WORD_ROWS; ++r) acc[r] = T(0);
+  for (int k = 0; k < 4; ++k)
+    cofs[k] = (uint32_t)((4 * jl + ((k + kq) & 3)) * ESZ);
 
-  for (int64_t w = threadIdx.x; w < nw; w += SNP_THREADS) {
-    // Unaligned rows: the first and last words of a row go byte by byte;
-    // the test is the same for all rows, so the loads of the others are
-    // issued together, before any is decoded.
-    const int64_t pos = 4 * w;
-    uint32_t word[WORD_ROWS];
+  const int64_t j0 = (int64_t)blockIdx.x * (NW * RPS);
+  const int64_t jw = j0 + warp * RPW + rw;  // the lane's row in slot 0
+  // rows past p re-read row p - 1, and their sums are never written
+  auto row0 = [&](int i) {
+    const int64_t j = jw + (int64_t)i * RPS;
+    return (j < p ? j : p - 1) * nb;
+  };
+  auto load_stage = [&](int64_t s, uint32_t* w) {
+    const int64_t pos = s * G + 4 * jl;
     if (ALIGNED) {
 #pragma unroll
-      for (int r = 0; r < WORD_ROWS; ++r)
-        word[r] = __ldg(
-            reinterpret_cast<const uint32_t*>(packed + row0(r)) + w);
+      for (int i = 0; i < NW; ++i)
+        w[i] = pos < nb ? __ldg(reinterpret_cast<const uint32_t*>(
+                              packed + row0(i) + pos))
+                        : 0u;
     } else if (pos >= 4 && pos + 8 <= nb) {
 #pragma unroll
-      for (int r = 0; r < WORD_ROWS; ++r)
-        word[r] = row_word(packed, row0(r), pos);
+      for (int i = 0; i < NW; ++i) w[i] = row_word(packed, row0(i), pos);
     } else {
 #pragma unroll
-      for (int r = 0; r < WORD_ROWS; ++r)
-        word[r] = row_word_edge(packed, row0(r), pos, nb);
+      for (int i = 0; i < NW; ++i)
+        w[i] = row_word_edge(packed, row0(i), pos, nb);
     }
-    T u[16];
-    Num<T>::load_u16(u_pad, w, u);
+  };
+
+  // The table of stage s: thread t builds byte position g = t % G for the
+  // high nibbles h = t / G + HQ m, all 16 low nibbles each.
+  auto build = [&](int64_t s) {
+    const int g = t % G;
+    const int hq = t / G;
+    const T* us = u_pad + (s * G + g) * 4;
+    T u[4];
 #pragma unroll
-    for (int r = 0; r < WORD_ROWS; ++r) {
-      const uint32_t x = word[r];
-      T s = acc[r];
+    for (int k = 0; k < 4; ++k) u[k] = us[k];
+    // code c of sample k: its value, and its share of the NA sum
+    auto val = [&](int c, int k) {
+      return (HAS_NA && c == 3) ? T(0) : T(c) * u[k];
+    };
+    auto nas = [&](int c, int k) { return c == 3 ? u[k] : T(0); };
+    T lo_v[16], lo_n[16];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        // plane l: the code of sample 4 k + l in byte k
-        const uint32_t plane = (x >> (2 * l)) & 0x03030303u;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          s = Num<T>::fma(Num<T>::code_of_byte(plane, k), u[4 * k + l], s);
-      }
-      if (HAS_NA) {
-        const uint32_t na = x & (x >> 1) & 0x55555555u;
-        if (na) {
-          const T d = imp_s[r] - T(3);
-#pragma unroll
-          for (int q = 0; q < 16; ++q)
-            if ((na >> (2 * q)) & 1u) s = Num<T>::fma(d, u[q], s);
-        }
-      }
-      acc[r] = s;
+    for (int b = 0; b < 16; ++b) {
+      lo_v[b] = val(b & 3, 0) + val(b >> 2, 1);
+      lo_n[b] = nas(b & 3, 0) + nas(b >> 2, 1);
     }
+    unsigned char* col = tab + g * ESZ;
+#pragma unroll
+    for (int m = 0; m < NH; ++m) {
+      const int h = hq + HQ * m;
+      const T hi_v = val(h & 3, 2) + val(h >> 2, 3);
+      const T hi_n = nas(h & 3, 2) + nas(h >> 2, 3);
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        *reinterpret_cast<E*>(col + (16 * h + b) * 256) =
+            Ent::make(lo_v[b] + hi_v, lo_n[b] + hi_n);
+    }
+  };
+
+  T acc[NW], acc_na[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) acc[i] = acc_na[i] = T(0);
+  uint32_t word[NW], next[NW];
+  load_stage(0, word);
+  const int64_t ns = (nb + G - 1) / G;
+  for (int64_t s = 0; s < ns; ++s) {
+    __syncthreads();  // the table of the stage before has been read
+    if (s + 1 < ns) load_stage(s + 1, next);
+    build(s);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const uint32_t x = __funnelshift_r(word[i], word[i], 8 * kq);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // (byte k of x) 256 + cofs[k]: the entry's address in the table
+        const uint32_t at = __byte_perm(x, cofs[k], 0x6504u | (k << 4));
+        const E e = *reinterpret_cast<const E*>(tab + at);
+        acc[i] = acc[i] + Ent::value(e);
+        if (HAS_NA) acc_na[i] = acc_na[i] + Ent::na(e);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) word[i] = next[i];
   }
-  write_rows<T>(acc, part, out, j0, rows);
+
+  // a row's sum over its LPR lanes, then out = value + impute NA
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    T v = acc[i], na = acc_na[i];
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (HAS_NA) na += __shfl_xor_sync(0xffffffffu, na, off);
+    }
+    const int64_t j = jw + (int64_t)i * RPS;
+    if (jl == 0 && j < p) out[j] = HAS_NA ? v + impute[j] * na : v;
+  }
+}
+
+template <typename T, bool HAS_NA, bool ALIGNED>
+int launch_snp_mul_rows(const uint8_t* packed, const T* u_pad,
+                        const T* impute, T* out, int64_t p, int64_t nb,
+                        cudaStream_t stream) {
+  constexpr int R = NW * TabShape<T, HAS_NA>::RPS;
+  const int64_t blocks = (p + R - 1) / R;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = snp_mul_kernel<T, HAS_NA, ALIGNED>;
+  // the 64 KB table is dynamic shared memory, opted into once a kernel
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TAB_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  kernel<<<(unsigned)blocks, SNP_THREADS, TAB_BYTES, stream>>>(
+      packed, u_pad, impute, out, p, nb);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool HAS_NA>
 int launch_snp_mul(const void* packed, const void* u_pad, const void* impute,
                    void* out, int64_t p, int64_t nb, void* stream) {
-  if (p < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (p + WORD_ROWS - 1) / WORD_ROWS;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = nb % 4 == 0 && (uintptr_t)packed % 4 == 0
-                    ? snp_mul_kernel<T, HAS_NA, true>
-                    : snp_mul_kernel<T, HAS_NA, false>;
-  kernel<<<(unsigned)blocks, SNP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const T*)u_pad, (const T*)impute, (T*)out, p,
-      nb);
-  return (int)cudaGetLastError();
+  if (p < 1 || nb < 1 || ((uintptr_t)u_pad & 15))
+    return (int)cudaErrorInvalidValue;
+  const auto* pk = (const uint8_t*)packed;
+  cudaStream_t st = (cudaStream_t)stream;
+  return nb % 4 == 0 && (uintptr_t)packed % 4 == 0
+             ? launch_snp_mul_rows<T, HAS_NA, true>(pk, (const T*)u_pad,
+                                                    (const T*)impute, (T*)out,
+                                                    p, nb, st)
+             : launch_snp_mul_rows<T, HAS_NA, false>(pk, (const T*)u_pad,
+                                                     (const T*)impute,
+                                                     (T*)out, p, nb, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -295,8 +380,10 @@ int launch_snp_mul(const void* packed, const void* u_pad, const void* impute,
 //    loads the row's four words of the next stage into registers while the
 //    current stage's products run (a stage is thousands of cycles, far
 //    more than a load's latency), with K3's one-load, funnel-shift or
-//    byte-wise read by the row's alignment, and decodes them with K3's
-//    exponent trick and per-word NA select.
+//    byte-wise read by the row's alignment (row_word, row_word_edge), and
+//    decodes them by the exponent trick (Num::code_of_byte: one byte
+//    permute puts a code into the mantissa of 1.5 2^23, one subtract
+//    removes that) with a select for the words that hold an NA.
 //  * The stage's slice of the column block of U^T is one contiguous run of
 //    64 CN values.  Thread 0 fetches it with one bulk copy (TMA) into a
 //    ring of RING stages, each completing on its own mbarrier

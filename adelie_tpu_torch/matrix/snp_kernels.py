@@ -13,11 +13,11 @@ Counterpart of ``adelie_tpu/matrix/_snp_pallas.py``:
 ``packed`` is (p, nb) uint8: row j holds sample i in byte ``i // 4``, bits
 ``2 (i % 4)``.  For a CUDA tensor each wrapper launches its kernel from
 ``csrc/snp_kernels.cu`` (built at first use, see ``_build.py``), or raises.
-K3 and K4 read a copy of ``u`` zero-padded to ``16 ceil(nb / 4)`` entries (a
-whole 4-byte word of every row), K5 its operand, ``U^T`` in column blocks
-padded to ``64 ceil(nb / 16)`` samples and to the block's column width
-(``many_operand``), so the tail codes past ``n`` contribute nothing;
-``packed`` is never copied.  For a CPU
+K3 and K4 read a copy of ``u`` zero-padded to ``256 ceil(nb / 64)`` entries
+(whole stages of every row: a stage is 16, 32 or 64 bytes), K5 its
+operand, ``U^T`` in column blocks padded to ``64 ceil(nb / 16)`` samples
+and to the block's column width (``many_operand``), so the tail codes past
+``n`` contribute nothing; ``packed`` is never copied.  For a CPU
 tensor each wrapper runs its twin, ``snp_mul_ref``, ``snp_mul_no_na_ref``
 or ``snp_mul_many_ref``: blocks of ``REF_BLOCK`` rows decoded and
 multiplied by one ``torch.matmul`` each, as the JAX package's XLA path
@@ -90,8 +90,10 @@ def _launch(name, packed, u, impute, p, nb, n):
     from .. import _build
 
     lib = _build.load()
-    # the kernel reads 16 entries of u per 4-byte word of a row
-    u_pad = torch.zeros(16 * ((nb + 3) // 4), dtype=u.dtype, device=u.device)
+    # the kernel builds its tables from u a stage at a time, up to 256
+    # samples (64 bytes of a row) a stage
+    u_pad = torch.zeros(256 * ((nb + 63) // 64), dtype=u.dtype,
+                        device=u.device)
     u_pad[:n] = u
     out = torch.empty(p, dtype=u.dtype, device=u.device)
     fn = getattr(lib, f"adelie_{name}_{_SUFFIX[u.dtype]}")

@@ -9,8 +9,9 @@ whose weighted (centered) Gram
 carries the coordinate descent: with the centered gradient ``g`` the update
 of coordinate i needs only ``g_i``, ``A[i, i]`` and, after it, the row AXPY
 ``g -= delta A[i, :]``.  Each solve is one launch of one of the two
-kernels of ``pin_kernels``, K1 when S <= 1024 and K2 above, and one host
-copy of ``(rsq, iters, done)`` after it.  Dispatch depends only on S,
+kernels of ``pin_kernels``, K1 when S <= 1024 and K2 above, both on the
+screen's slot buffers as they are, and one host copy of
+``(rsq, iters, done)`` after it.  Dispatch depends only on S,
 never on the device; the kernels' wrappers decide between kernel and twin
 by the tensors' device.
 
@@ -96,32 +97,6 @@ def screen_eigh(A, slot_begin, slot_size, qmax: int):
 # --------------------------------------------------------------------------- #
 
 
-def _pin_lasso_dispatch(A, grad, beta, slot_begin, slot_size, eigvals,
-                        penalty, is_active, lmda, alpha, tol, max_iters, rsq):
-    """Adapt the (G_cap,) slot buffers to K1's (S,) positions: q = 1 means
-    slot_begin[i] == i for valid slots; invalid slots scatter into the
-    never-valid position S - 1."""
-    S = A.shape[0]
-    like = dict(dtype=A.dtype, device=A.device)
-    m = slot_size > 0
-    pos = torch.where(m, slot_begin, S - 1).long()
-    diag_s = torch.zeros(S, **like)
-    diag_s[pos] = torch.where(m, eigvals[:, 0], torch.zeros((), **like))
-    pen_s = torch.ones(S, **like)
-    pen_s[pos] = torch.where(m, penalty.to(A.dtype), torch.ones((), **like))
-    valid_s = torch.zeros(S, dtype=torch.bool, device=A.device)
-    valid_s[pos] = m
-    act_s = torch.zeros(S, dtype=torch.bool, device=A.device)
-    act_s[pos] = is_active & m
-
-    beta_n, grad_n, act_n, info = pin_lasso_solve(
-        A, grad.contiguous(), beta.contiguous(), diag_s, valid_s, act_s,
-        pen_s, lmda, alpha, tol, max_iters, rsq,
-    )
-    rsq_n, iters, done = info.tolist()
-    return beta_n, grad_n, act_n[pos] & m, rsq_n, int(iters), bool(done)
-
-
 def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
                   is_active, lmda, alpha, tol, max_iters, rsq):
     """Solve the pinned lasso / elastic net at one lambda.
@@ -134,13 +109,9 @@ def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
     three on the host.
     """
     _q1_only(eigvals.shape[1])
-    S = A.shape[0]
-    if S <= MAX_PALLAS_S:
-        return _pin_lasso_dispatch(A, grad, beta, slot_begin, slot_size,
-                                   eigvals, penalty, is_active, lmda, alpha,
-                                   tol, max_iters, rsq)
-
-    beta, grad, is_active, info = pin_lasso_solve_rows(
+    solve = (pin_lasso_solve if A.shape[0] <= MAX_PALLAS_S
+             else pin_lasso_solve_rows)
+    beta, grad, is_active, info = solve(
         A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
         eigvals, penalty, is_active, lmda, alpha, tol, max_iters, rsq,
     )

@@ -10,14 +10,21 @@ of ``adelie_tpu/solver/pin.py:pin_cov_solve``:
   (it replaces ``cd_sweep_rows_pallas``, one launch per sweep on the TPU,
   together with the host loop around it).
 
+Both take the screen's slot buffers as they are (``slot_begin, slot_size,
+eigvals, penalty, is_active``) and differ in the full sweep: K1 updates
+every valid slot at the current gradient, as ``pin_lasso_solve_pallas``
+does; K2 first filters the slots by a proposal at the sweep-entry
+gradient, as the JAX package's big-S loop does.
+
 For a CUDA tensor each wrapper launches its kernel from
 ``csrc/pin_kernels.cu`` (built at first use, see ``_build.py``) or raises;
 for a CPU tensor it runs the twin, ``pin_lasso_solve_ref`` or
 ``pin_lasso_solve_rows_ref``.  The twins are Python loops over coordinates
 with the kernels' contract: the same update order, the same guarded soft
 threshold, the same stopping rules, with scalar arithmetic in the tensors'
-dtype.  K2's twin runs each pass as ``cd_sweep_rows_ref``, the plain
-version of the JAX package's ``cd_sweep_rows_pallas``.
+dtype.  The twins share one loop and run each pass as
+``cd_sweep_rows_ref``, the plain version of the JAX package's
+``cd_sweep_rows_pallas``.
 
 ``launches`` counts kernel launches (never twin runs), so that a run can
 show that its main path went through the kernels.
@@ -79,124 +86,93 @@ def _route(t, what):
 # --------------------------------------------------------------------------- #
 
 
-def pin_lasso_solve(A, grad, beta, diag, valid, active, penalty,
-                    lmda, alpha, tol, max_iters, rsq):
-    """The whole lasso pin solve at one lambda (positional, S <= 1024).
+def _check_slot_args(what, A, grad, beta, slot_begin, slot_size, eigvals,
+                     penalty, is_active):
+    """K1's and K2's common checks of a kernel launch; returns the slot
+    buffers in the kernels' dtypes (no-ops on the main path)."""
+    S = A.shape[0]
+    G = slot_size.shape[0]
+    if A.data_ptr() % 16:
+        raise ValueError(f"{what}: A must start on a 16-byte boundary (its "
+                         "rows are copied 16 bytes at a time)")
+    slot_begin = slot_begin.to(torch.int64)
+    slot_size = slot_size.to(torch.int32)
+    penalty = penalty.to(A.dtype)
+    vec = (None, (S,))
+    _check_cuda(what, A.dtype, A.device, A=(A, None, (S, S)),
+                grad=(grad, *vec), beta=(beta, *vec),
+                slot_begin=(slot_begin, torch.int64, (G,)),
+                slot_size=(slot_size, torch.int32, (G,)),
+                eigvals=(eigvals, None, (G, 1)), penalty=(penalty, None, (G,)),
+                is_active=(is_active, torch.bool, (G,)))
+    return slot_begin, slot_size, penalty
 
-    ``A`` (S, S) symmetric; ``grad, beta, diag, penalty`` (S,) of A's dtype;
-    ``valid, active`` (S,) bool.  Returns ``(beta, grad, active, info)``
-    where ``info`` is a (3,) tensor of A's dtype holding
-    ``(rsq, iters, done)``: read it with one host copy.
+
+def pin_lasso_solve(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
+                    is_active, lmda, alpha, tol, max_iters, rsq):
+    """The whole lasso pin solve at one lambda for a screen capacity
+    4 <= S <= ``MAX_PALLAS_S`` with S a multiple of 4.
+
+    The arguments are ``pin_lasso_solve_rows``'s: ``A`` (S, S) symmetric;
+    ``grad, beta`` (S,) of A's dtype; the slot buffers ``slot_begin,
+    slot_size, penalty, is_active`` (G,) and ``eigvals`` (G, 1).  Returns
+    ``(beta, grad, is_active, info)``: ``is_active`` (G,) bool, ``info`` a
+    (3,) tensor of A's dtype holding ``(rsq, iters, done)``; read it with
+    one host copy.
     """
     if not _route(A, "pin_lasso_solve"):
-        return pin_lasso_solve_ref(A, grad, beta, diag, valid, active, penalty,
-                                   lmda, alpha, tol, max_iters, rsq)
+        return pin_lasso_solve_ref(A, grad, beta, slot_begin, slot_size,
+                                   eigvals, penalty, is_active, lmda, alpha,
+                                   tol, max_iters, rsq)
     dt = _scalar_dtype(A)
     S = A.shape[0]
-    if A.dim() != 2 or A.shape[1] != S or not 1 <= S <= MAX_PALLAS_S:
+    G = slot_size.shape[0]
+    if (A.dim() != 2 or A.shape[1] != S or not 4 <= S <= MAX_PALLAS_S
+            or S % 4 or G < 1):
         raise ValueError(
-            f"pin_lasso_solve: A must be (S, S) with S <= {MAX_PALLAS_S}, "
-            f"got {tuple(A.shape)}"
+            f"pin_lasso_solve: A must be (S, S) with 4 <= S <= "
+            f"{MAX_PALLAS_S} a multiple of 4, and G >= 1 slots; got A "
+            f"{tuple(A.shape)}, G = {G}"
         )
-    vec = (None, (S,))
-    _check_cuda("pin_lasso_solve", A.dtype, A.device, A=(A, None, (S, S)),
-                grad=(grad, *vec), beta=(beta, *vec), diag=(diag, *vec),
-                penalty=(penalty, *vec), valid=(valid, torch.bool, (S,)),
-                active=(active, torch.bool, (S,)))
+    slot_begin, slot_size, penalty = _check_slot_args(
+        "pin_lasso_solve", A, grad, beta, slot_begin, slot_size, eigvals,
+        penalty, is_active)
     from .. import _build
 
     lib = _build.load()
     l1, l2 = _l1_l2(dt, lmda, alpha)
     beta_out = torch.empty_like(beta)
     grad_out = torch.empty_like(grad)
-    active_out = torch.empty_like(active)
+    active_out = torch.empty_like(is_active)
     info = torch.empty(3, dtype=A.dtype, device=A.device)
     fn = getattr(lib, f"adelie_pin_lasso_solve_{_SUFFIX[A.dtype]}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(A.data_ptr(), diag.data_ptr(), penalty.data_ptr(),
-                  valid.data_ptr(), active.data_ptr(), beta.data_ptr(),
-                  grad.data_ptr(), beta_out.data_ptr(), grad_out.data_ptr(),
-                  active_out.data_ptr(), info.data_ptr(), S, float(l1),
-                  float(l2), float(dt(tol)), float(dt(rsq)), int(max_iters),
-                  stream)
+        code = fn(A.data_ptr(), beta.data_ptr(), grad.data_ptr(),
+                  slot_begin.data_ptr(), slot_size.data_ptr(),
+                  eigvals.data_ptr(), penalty.data_ptr(),
+                  is_active.data_ptr(), beta_out.data_ptr(),
+                  grad_out.data_ptr(), active_out.data_ptr(), info.data_ptr(),
+                  S, G, float(l1), float(l2), float(dt(tol)), float(dt(rsq)),
+                  int(max_iters), stream)
     _build.check(lib, code, "pin_lasso_solve")
     launches["pin_lasso_solve"] += 1
     return beta_out, grad_out, active_out, info
 
 
-def pin_lasso_solve_ref(A, grad, beta, diag, valid, active, penalty,
-                        lmda, alpha, tol, max_iters, rsq):
+def pin_lasso_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals,
+                        penalty, is_active, lmda, alpha, tol, max_iters, rsq):
     """Plain twin of ``pin_lasso_solve``: same arguments, same results.
 
-    Gauss-Seidel over ascending positions: an active phase (valid and
-    active coordinates; at least one sweep, then until convg < tol_f, a
-    floor-gated stall or max_iters) and one full sweep over the valid
-    coordinates, repeated until a full sweep's convg < tol_f.
+    The active phase sweeps ``is_active & valid`` in ascending slot order
+    (at least once, then until convg < tol_f, a floor-gated stall or
+    max_iters); a full sweep over every valid slot follows, at the current
+    gradient, and its moved slots become active; both repeat until a full
+    sweep's convg < tol_f.  Each sweep is one ``cd_sweep_rows_ref``.
     """
-    dt = _scalar_dtype(A)
-    S = A.shape[0]
-    l1, l2 = _l1_l2(dt, lmda, alpha)
-    tol = dt(tol)
-    max_iters = int(max_iters)
-    diag_h = np.asarray(diag.tolist(), dt)
-    pen_h = np.asarray(penalty.tolist(), dt)
-    valid_h = np.asarray(valid.tolist(), bool)
-    act_h = np.asarray(active.tolist(), bool)
-    beta_h = np.asarray(beta.tolist(), dt)
-    grad = grad.clone()
-    rsq = dt(rsq)
-
-    eps = dt(np.finfo(dt).eps)
-    lam_cap = np.maximum(np.max(np.abs(diag_h)), dt(1.0))
-    tol_f = np.maximum(tol, dt(100.0) * lam_cap * (dt(10.0) * eps) ** 2)
-    stall_floor = dt(1e8) * lam_cap * eps * eps
-
-    def sweep(active_only):
-        nonlocal rsq
-        convg = dt(0.0)
-        for i in range(S):
-            if not valid_h[i] or (active_only and not act_h[i]):
-                continue
-            b, g = beta_h[i], dt(grad[i].item())
-            bnew = _soft_update(dt, b, g, diag_h[i], pen_h[i], l1, l2)
-            d = bnew - b
-            if d != 0:
-                grad.sub_(A[i] * float(d))
-                beta_h[i] = bnew
-                act_h[i] = True
-                convg = np.maximum(convg, diag_h[i] * d * d)
-                rsq = rsq + d * (dt(2.0) * g - d * diag_h[i])
-        return convg
-
-    def next_slow(slow, convg, prev):
-        return slow + 1 if convg >= dt(0.99) * prev else 0
-
-    def stalled(slow, convg):
-        return slow >= 3 and convg <= stall_floor
-
-    convg, slow, iters, done = dt(np.inf), 0, 0, False
-    while (not done and iters < max_iters and not stalled(slow, convg)
-           and not np.isnan(convg)):
-        prev = convg
-        c = sweep(True)
-        a_slow, it = 0, iters + 1
-        while c >= tol_f and it < max_iters and not stalled(a_slow, c):
-            a_prev = c
-            c = sweep(True)
-            a_slow = next_slow(a_slow, c, a_prev)
-            it += 1
-        iters = it
-        convg = sweep(False)
-        slow = next_slow(slow, convg, prev)
-        iters += 1
-        done = bool(convg < tol_f)
-    done = (done or stalled(slow, convg)) and not np.isnan(convg)
-
-    like = dict(dtype=A.dtype, device=A.device)
-    info = torch.tensor([float(rsq), float(iters), float(done)], **like)
-    return (torch.tensor(beta_h, **like), grad,
-            torch.tensor(act_h, device=A.device), info)
+    return _pin_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals,
+                          penalty, is_active, lmda, alpha, tol, max_iters,
+                          rsq, _plain_full_sweep_q1)
 
 
 def _soft_update(dt, b, g, akk, pk, l1, l2):
@@ -237,20 +213,9 @@ def pin_lasso_solve_rows(A, grad, beta, slot_begin, slot_size, eigvals,
             f"a multiple of 4, and G >= 1 slots; got A {tuple(A.shape)}, "
             f"G = {G}"
         )
-    if A.data_ptr() % 16:
-        raise ValueError("pin_lasso_solve_rows: A must start on a 16-byte "
-                         "boundary (its rows are copied 16 bytes at a time)")
-    # no-ops on the main path, whose buffers already have these dtypes
-    slot_begin = slot_begin.to(torch.int64)
-    slot_size = slot_size.to(torch.int32)
-    penalty = penalty.to(A.dtype)
-    vec = (None, (S,))
-    _check_cuda("pin_lasso_solve_rows", A.dtype, A.device,
-                A=(A, None, (S, S)), grad=(grad, *vec), beta=(beta, *vec),
-                slot_begin=(slot_begin, torch.int64, (G,)),
-                slot_size=(slot_size, torch.int32, (G,)),
-                eigvals=(eigvals, None, (G, 1)), penalty=(penalty, None, (G,)),
-                is_active=(is_active, torch.bool, (G,)))
+    slot_begin, slot_size, penalty = _check_slot_args(
+        "pin_lasso_solve_rows", A, grad, beta, slot_begin, slot_size,
+        eigvals, penalty, is_active)
     from .. import _build
 
     lib = _build.load()
@@ -287,16 +252,25 @@ def pin_lasso_solve_rows_ref(A, grad, beta, slot_begin, slot_size, eigvals,
                              rsq):
     """Plain twin of ``pin_lasso_solve_rows``: same arguments, same results.
 
-    The active phase compacts ``is_active & valid`` into an ascending list
-    once and sweeps it (at least once, then until convg < tol_f, a
-    floor-gated stall or max_iters); the filtered full sweep follows; both
-    repeat until a full sweep's convg < tol_f.  Each pass is one
-    ``cd_sweep_rows_ref`` over its list.
+    K1's twin with the filtered full sweep (``_full_sweep_q1``) in place of
+    the plain one: the active phase compacts ``is_active & valid`` into an
+    ascending list once and sweeps it (at least once, then until convg <
+    tol_f, a floor-gated stall or max_iters); the filtered full sweep
+    follows; both repeat until a full sweep's convg < tol_f.  Each pass is
+    one ``cd_sweep_rows_ref`` over its list.
     """
+    return _pin_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals,
+                          penalty, is_active, lmda, alpha, tol, max_iters,
+                          rsq, _full_sweep_q1)
+
+
+def _pin_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
+                   is_active, lmda, alpha, tol, max_iters, rsq, full_sweep):
+    """The twins' loop: active phases and ``full_sweep`` passes."""
     dt = _scalar_dtype(A)
     l1, l2 = _l1_l2(dt, lmda, alpha)
-    # dtype-feasibility floor and floor-gated stall, as in K1: a stall exit
-    # needs three sweeps in a row improving convg by < 1% while convg is
+    # dtype-feasibility floor and floor-gated stall: a stall exit needs
+    # three sweeps in a row improving convg by < 1% while convg is
     # already at the dtype's floor
     eps = dt(np.finfo(dt).eps)
     lam_max = np.maximum(dt(torch.max(torch.abs(eigvals)).item()), dt(1.0))
@@ -333,7 +307,7 @@ def pin_lasso_solve_rows_ref(A, grad, beta, slot_begin, slot_size, eigvals,
         prev = convg
         beta, grad, is_active, rsq, iters = active_phase(
             beta, grad, is_active, rsq, iters)
-        beta, grad, is_active, rsq, convg = _full_sweep_q1(
+        beta, grad, is_active, rsq, convg = full_sweep(
             (beta, grad, is_active, rsq), c)
         convg = dt(convg)
         slow = next_slow(slow, convg, prev)
@@ -384,6 +358,12 @@ def _sweep_q1(carry, c: _Consts, plan, update_active=True):
         is_active[idx] |= moved
     convg, rsq = info.tolist()
     return beta, grad, is_active, rsq, convg
+
+
+def _plain_full_sweep_q1(carry, c: _Consts):
+    """K1's screen-set sweep: every valid slot, in ascending order, at the
+    current gradient."""
+    return _sweep_q1(carry, c, _make_plan(c.slot_size > 0, c))
 
 
 def _full_sweep_q1(carry, c: _Consts):

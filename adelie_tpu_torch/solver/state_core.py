@@ -37,6 +37,13 @@ def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, group_ids,
     return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
+def screen_cap(n: int) -> int:
+    """The screen capacity for ``n`` slots: its bucket, rounded up to a
+    multiple of 4, the pin kernels' unit (the extra slots are invalid)."""
+    cap = bucket(n, configs.screen_cap_min)
+    return cap + (-cap) % 4
+
+
 class ScreenCache:
     """Device-resident derived quantities of the current screen set."""
 
@@ -98,7 +105,7 @@ class ScreenCache:
 
         qmax = bucket_pow2(int(gs.max())) if len(ss) else 1
         # a qmax margin so a group's block never runs off the end
-        S_cap = bucket(S_val + qmax, configs.screen_cap_min)
+        S_cap = screen_cap(S_val + qmax)
         G_cap = bucket(len(ss), configs.group_cap_min)
 
         Xs = torch.zeros((state.n, S_cap), dtype=state.torch_dtype,
@@ -140,7 +147,7 @@ class ScreenCache:
         s_old = self.S_val
         dS = int(gs_new.sum())
         S_val = s_old + dS
-        S_cap = bucket(S_val + self.qmax, configs.screen_cap_min)
+        S_cap = screen_cap(S_val + self.qmax)
         G_cap = bucket(len(ss), configs.group_cap_min)
         dS_pad = bucket_pow2(dS)
         if s_old + dS_pad > S_cap:

@@ -7,8 +7,15 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from adelie_tpu_torch/csrc;
-3. K1 ``pin_lasso_solve`` against its plain twin on the card, float32 and
-   float64, S in {64, 1000, 1024};
+3. K1 ``pin_lasso_solve`` (the whole pin solve up to S = 1024) against
+   its twin, bit-equal: float32 and float64 at S in {64, 1000, 1024} from
+   a cold start, and at S = 1024 from warm starts whose active list K1
+   keeps resident (float32) and streams (float64); the time per update
+   beside the kernel's floor (every delta 0) at S = 128 and 1024, and
+   beside the first K1's time; then a float64 BASIL fit with a
+   ``screen_cap_min`` of 6 and of 10, not multiples of 4, whose screen
+   capacities round up to multiples of 4 (K1 at S = 8 or 12), against
+   the fit at the default capacity;
 4. K2 ``pin_lasso_solve_rows`` (the whole pin solve past S = 1024)
    against its twin, bit-equal: float32 and float64 at S in {2048, 8192}
    from a cold and a warm start, with invalid slots and a penalty of 0 at
@@ -18,7 +25,8 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
    kernel on a list whose every delta is 0);
 5. the headline fit: ``grpnet(X, glm.gaussian(y))`` on "cuda" at
    n = 40,000, p = 2,000, 100 lambdas, float32 (bench.py's problem), with a
-   per-lambda KKT check in numpy float64;
+   per-lambda KKT check in numpy float64, and one more fit under
+   ``torch.profiler`` (K1's device time and the idle share);
 6. the big-S fit, whose screen set passes 1024, so K2 carries it: a
    warm-up fit whose every K2 solve is held bit-equal to the twin on the
    CPU on copies of its inputs, a timed fit (one K2 launch per pin solve
@@ -32,7 +40,8 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
    offset mod 4 (nb % 4 = 1, 2, 3, 0), in float32 and float64 against the
    twin in float64; then exact checks with integer inputs (bit-equal) at
    the GWAS shape, p = 200,000 with n = 50,000 (rows 4-byte aligned) and
-   n = 50,001 (not), each timed;
+   n = 50,001 (not), each timed; phases 9 and 10 time them on their
+   matrices beside their times before the redesign;
 9. the GWAS fit: ``grpnet(matrix.snp_unphased(io), glm.gaussian(y))`` at
    n = 50,000 samples, p = 200,000 SNPs (2.5 GB packed; bench.py's GWAS
    problem), 50 lambdas, float32, intercept, with a per-lambda KKT check
@@ -131,77 +140,184 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def check_close(what, got, want, dtype_is_f32):
-    """f32: |got - want| <= 1e-4 (|want| + max|want|); f64: atol 1e-10."""
-    import torch
-
-    got, want = got.double().cpu(), want.double().cpu()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if dtype_is_f32:
-        bound = 1e-4 * (want.abs() + want.abs().max())
-        ok = bool(((got - want).abs() <= bound).all())
-    else:
-        ok = err <= 1e-10
-    if not ok or not bool(torch.isfinite(got).all()):
-        fail(f"{what}: max abs diff {err:.3e} is past the bar")
-    return err
-
-
 # --------------------------------------------------------------------------- #
 # phases 3 and 4: each kernel against its twin                                 #
 # --------------------------------------------------------------------------- #
 
 
-def k1_case(S, dtype, seed):
-    """A well-conditioned screen problem: A = X^T X / n with n = 4 S
-    (eigenvalues in about [0.25, 2.25]), a few invalid slots."""
+def k1_problem(S, dtype, seed, case="cold"):
+    """A well-conditioned screen problem for K1 on the card, as slot
+    buffers (one slot a position): A = X^T X / n with n = 4 S
+    (eigenvalues in about [0.25, 2.25]), the last three slots invalid,
+    lambda 0.05 max |grad|.  ``case``: "cold" (beta 0, nothing active: the
+    first K1's phase-3 problem); "warm" (``frac`` of the valid coordinates
+    given beta and active, the gradient moved to match, every seventh slot
+    invalid as well); "floor" (every eigenvalue 0 and alpha 1, so every
+    update has a zero denominator and keeps its coefficient: the chain
+    with no AXPY, over an active list of ``frac`` of the slots and a full
+    sweep)."""
     import numpy as np
     import torch
 
-    from adelie_tpu_torch.solver import pin_kernels as tk
-
+    case, frac = (case, 0.0) if isinstance(case, str) else case
     rng = np.random.default_rng(seed)
     n = 4 * S
     X = torch.as_tensor(rng.standard_normal((n, S)), device="cuda")
     beta_true = np.where(rng.random(S) < 0.2, rng.standard_normal(S), 0.0)
     y = X @ torch.as_tensor(beta_true, device="cuda") \
         + 0.5 * torch.as_tensor(rng.standard_normal(n), device="cuda")
-    A = (X.T @ X / n).to(dtype).contiguous()
-    grad = (X.T @ y / n).to(dtype)
-    valid = torch.ones(S, dtype=torch.bool, device="cuda")
+    A64 = X.T @ X / n
+    g = X.T @ y / n
+    valid = np.ones(S, bool)
     valid[-3:] = False
-    diag = torch.where(valid, torch.diagonal(A), 0).contiguous()
-    pen = torch.as_tensor(rng.uniform(0.5, 1.5, S), dtype=dtype,
-                          device="cuda")
-    beta0 = torch.zeros(S, dtype=dtype, device="cuda")
-    act0 = torch.zeros(S, dtype=torch.bool, device="cuda")
-    lmda = 0.05 * float(grad.abs().max())
-    args = (A, grad, beta0, diag, valid, act0, pen, lmda, 1.0, 1e-7,
-            100000, 0.0)
-
-    kernel = lambda: tk.pin_lasso_solve(*args)  # noqa: E731
-    twin = lambda: tk.pin_lasso_solve_ref(*args)  # noqa: E731
-    ms = cuda_ms(kernel, reps=10)
-    b_k, g_k, a_k, info_k = kernel()
-    plain_ms, (b_t, g_t, a_t, info_t) = host_ms(twin)
-    f32 = dtype == torch.float32
-    err = max(check_close(f"K1 S={S} {dtype} beta", b_k, b_t, f32),
-              check_close(f"K1 S={S} {dtype} grad", g_k, g_t, f32))
-    rsq_k, it_k, done_k = info_k.tolist()
-    rsq_t, it_t, done_t = info_t.tolist()
-    if done_k != done_t or done_k != 1.0:
-        fail(f"K1 S={S} {dtype}: done kernel {done_k} twin {done_t}")
-    if not torch.equal(a_k, a_t):
-        fail(f"K1 S={S} {dtype}: active flags differ")
-    return dict(S=S, dtype=str(dtype), max_abs_err=err, iters=int(it_k),
-                iters_twin=int(it_t), n_active=int(a_k.sum()), ms=ms,
-                plain_ms=plain_ms)
+    pen = rng.uniform(0.5, 1.5, S)
+    beta0 = np.zeros(S)
+    act0 = np.zeros(S, bool)
+    if case == "warm":
+        valid[5::7] = False
+        beta0 = np.where(valid & (rng.random(S) < frac),
+                         0.05 * rng.standard_normal(S), 0.0)
+        g = g - A64 @ torch.as_tensor(beta0, device="cuda")
+        act0 = beta0 != 0
+    elif case == "floor":
+        act0 = valid & (rng.random(S) < frac)
+    A = A64.to(dtype).contiguous()
+    ev = torch.where(torch.as_tensor(valid, device="cuda"), torch.diagonal(A),
+                     0)
+    if case == "floor":
+        ev = torch.zeros_like(ev)
+    lmda = 0.05 * float(g.abs().max())
+    dev = dict(device="cuda")
+    return (A, g.to(dtype), torch.as_tensor(beta0, dtype=dtype, **dev),
+            torch.arange(S, dtype=torch.int64, **dev),
+            torch.as_tensor(valid.astype(np.int32), **dev),
+            ev[:, None].contiguous(), torch.as_tensor(pen, dtype=dtype, **dev),
+            torch.as_tensor(act0, **dev), lmda, 1.0, 1e-7, 100000, 0.0)
 
 
-# K2 before this redesign: one launch per sweep, 0.414 ms for a pass of
-# 400 listed updates at S = 2048 in float32 (NVIDIA H100 80GB HBM3,
-# 700.00 W; the earlier chip_smoke.py, phase 4)
+def counted_twin(tk, run):
+    """``run()`` with the twins' passes counted: listed updates, moved
+    updates and distinct moved rows.  Returns (run's result, counts)."""
+    count = dict(listed=0, moved=0, rows=set())
+    inner = tk.cd_sweep_rows_ref
+
+    def counted(A, beta, grad, pos, akk, pk, n, l1, l2, rsq):
+        out = inner(A, beta, grad, pos, akk, pk, n, l1, l2, rsq)
+        k = int(n.item())
+        moved = out[2][:k]
+        count["listed"] += k
+        count["moved"] += int(moved.sum())
+        count["rows"].update(pos[:k][moved].tolist())
+        return out
+
+    tk.cd_sweep_rows_ref = counted
+    try:
+        return run(), count
+    finally:
+        tk.cd_sweep_rows_ref = inner
+
+
+def solve_case(what, kernel, twin, args, reps):
+    """A whole-solve kernel (K1 or K2) against its twin on the same inputs:
+    bit-equal beta, grad and active flags, equal (rsq, iters, done), a
+    converged solve.  The twin's passes are counted for the per-update time
+    and the bound."""
+    from adelie_tpu_torch.solver import pin_kernels as tk
+
+    ms = cuda_ms(lambda: kernel(*args), reps=reps)
+    b_k, g_k, a_k, info_k = kernel(*args)
+    (plain_ms, (b_t, g_t, a_t, info_t)), count = counted_twin(
+        tk, lambda: host_ms(lambda: twin(*args)))
+    for name, x, y in (("beta", b_k, b_t), ("grad", g_k, g_t),
+                       ("active", a_k, a_t)):
+        if not same_bits(x, y):
+            err = float((x.double() - y.double()).abs().max())
+            fail(f"{what}: {name} differs from the twin (max |diff| "
+                 f"{err:.3e})")
+    if info_k.tolist() != info_t.tolist():
+        fail(f"{what}: (rsq, iters, done) {info_k.tolist()} against the "
+             f"twin's {info_t.tolist()}")
+    rsq, iters, done = info_k.tolist()
+    if done != 1.0:
+        fail(f"{what}: the solve did not converge (iters {iters})")
+    listed = max(count["listed"], 1)
+    return dict(ms=ms, plain_ms=plain_ms, iters=int(iters),
+                listed=count["listed"], moved=count["moved"],
+                rows=len(count["rows"]), us_per_update=ms * 1e3 / listed,
+                max_abs_err=0.0, n_active=int(a_k.sum()),
+                out=(b_k, g_k, a_k, info_k))
+
+
+def k1_case(S, dtype, seed, case="cold"):
+    """K1 against its twin, bit-equal (``solve_case``); with the active
+    list at entry and the rows K1 keeps resident at this S and dtype."""
+    from adelie_tpu_torch import _build
+    from adelie_tpu_torch.solver import pin_kernels as tk
+
+    args = k1_problem(S, dtype, seed, case)
+    r = solve_case(f"K1 S={S} {dtype} {case}", tk.pin_lasso_solve,
+                   tk.pin_lasso_solve_ref, args, reps=10)
+    del r["out"]
+    return dict(r, S=S, dtype=str(dtype), case=case,
+                active0=int(args[7].sum()),
+                resident=_build.load().adelie_pin_lasso_solve_resident_rows(
+                    S, dtype.itemsize))
+
+
+# K1 before this redesign (one thread a coordinate, every sweep over all S
+# slots, each row read after its update's barrier): its phase-3 times on
+# the "cold" problems, which the redesign solves by the same updates
+# (NVIDIA H100 80GB HBM3, 700.00 W; the earlier chip_smoke.py, phase 3).
+# At S = 64 the earlier kernel was faster: 64 threads on a block barrier,
+# against 288 threads, a named barrier and the lists' prefix sums.
+K1_OLD_MS = {(64, "torch.float32"): 0.215, (1000, "torch.float32"): 3.483,
+             (1024, "torch.float32"): 3.542, (64, "torch.float64"): 0.229,
+             (1000, "torch.float64"): 3.873, (1024, "torch.float64"): 3.930}
+# K2 before its redesign: one launch per sweep, 0.414 ms for a pass of
+# 400 listed updates at S = 2048 in float32 (the same card; the earlier
+# chip_smoke.py, phase 4)
 K2_OLD_US_PER_UPDATE = 0.414e3 / 400
+
+
+def odd_cap_case(ad, tk, cap_min):
+    """Phase 3: a ``screen_cap_min`` that is not a multiple of 4, on the
+    card.  The screen capacities round up to one, so BASIL's first screens
+    run K1 at S = 8 or 12, and the float64 path is the default capacity's
+    (lambdas to rtol 1e-10, beta to atol 1e-6, as the CPU tests hold it).
+    Returns the capacities and K1's launches."""
+    import numpy as np
+
+    X, y = headline_problem(120, 40, 6, seed=5)
+    X, y = X.astype(np.float64), y.astype(np.float64)
+
+    def path():
+        return fit(ad, ad.matrix.dense(X, device="cuda"), y,
+                   lmda_path_size=20, device="cuda")[1]
+
+    ad.set_configs("screen_all_max", 0)
+    try:
+        ref = path()
+        ad.set_configs("screen_cap_min", cap_min)
+        n0 = tk.launches["pin_lasso_solve"]
+        st = path()
+        n_k1 = tk.launches["pin_lasso_solve"] - n0
+    finally:
+        ad.set_configs("screen_all_max", None)
+        ad.set_configs("screen_cap_min", None)
+    caps = st.benchmark["pin_caps"]
+    what = f"K1 with screen_cap_min {cap_min}"
+    if st.error or ref.error or n_k1 <= 0:
+        fail(f"{what}: errors {st.error!r}, {ref.error!r}, {n_k1} launches")
+    if any(c % 4 for c in caps) or min(caps) >= 2 * cap_min:
+        fail(f"{what}: screen capacities {sorted(set(caps))}")
+    d_beta = float(np.abs(st.betas.toarray() - ref.betas.toarray()).max())
+    if (len(st.lmdas) != len(ref.lmdas)
+            or not np.allclose(st.lmdas, ref.lmdas, rtol=1e-10, atol=0)
+            or d_beta > 1e-6):
+        fail(f"{what}: path differs from the default capacity's "
+             f"({len(st.lmdas)} against {len(ref.lmdas)} lambdas, max "
+             f"|d beta| {d_beta:.2e})")
+    return sorted(set(caps)), n_k1
 
 
 def same_bits(a, b):
@@ -271,57 +387,13 @@ def k2_problem(S, dtype, seed, case):
 
 
 def k2_case(S, dtype, seed, case):
-    """K2 against its twin on the same inputs: bit-equal beta, grad and
-    active flags, equal (rsq, iters, done).  The twin's passes are counted
-    (listed updates, moved updates, distinct moved rows) for the
-    per-update time and the bound."""
-    import numpy as np
-    import torch
-
+    """K2 against its twin on the same inputs, bit-equal (``solve_case``)."""
     from adelie_tpu_torch.solver import pin_kernels as tk
 
     args = k2_problem(S, dtype, seed, case)
-    kernel = lambda: tk.pin_lasso_solve_rows(*args)  # noqa: E731
-    twin = lambda: tk.pin_lasso_solve_rows_ref(*args)  # noqa: E731
-    ms = cuda_ms(kernel, reps=5)
-    b_k, g_k, a_k, info_k = kernel()
-    count = dict(listed=0, moved=0, rows=set())
-    inner = tk.cd_sweep_rows_ref
-
-    def counted(A, beta, grad, pos, akk, pk, n, l1, l2, rsq):
-        out = inner(A, beta, grad, pos, akk, pk, n, l1, l2, rsq)
-        k = int(n.item())
-        moved = out[2][:k]
-        count["listed"] += k
-        count["moved"] += int(moved.sum())
-        count["rows"].update(pos[:k][moved].tolist())
-        return out
-
-    tk.cd_sweep_rows_ref = counted
-    try:
-        plain_ms, (b_t, g_t, a_t, info_t) = host_ms(twin)
-    finally:
-        tk.cd_sweep_rows_ref = inner
-    what = f"K2 S={S} {dtype} {case}"
-    for name, x, y in (("beta", b_k, b_t), ("grad", g_k, g_t),
-                       ("active", a_k, a_t)):
-        if not same_bits(x, y):
-            err = float((x.double() - y.double()).abs().max())
-            fail(f"{what}: {name} differs from the twin (max |diff| "
-                 f"{err:.3e})")
-    if info_k.tolist() != info_t.tolist():
-        fail(f"{what}: (rsq, iters, done) {info_k.tolist()} against the "
-             f"twin's {info_t.tolist()}")
-    rsq, iters, done = info_k.tolist()
-    if done != 1.0:
-        fail(f"{what}: the solve did not converge (iters {iters})")
-    listed = max(count["listed"], 1)
-    return dict(S=S, dtype=str(dtype), case=case, ms=ms, plain_ms=plain_ms,
-                iters=int(iters), listed=count["listed"],
-                moved=count["moved"], rows=len(count["rows"]),
-                us_per_update=ms * 1e3 / listed, max_abs_err=0.0,
-                n_active=int(a_k.sum()), args=args,
-                out=(b_k, g_k, a_k, info_k))
+    r = solve_case(f"K2 S={S} {dtype} {case}", tk.pin_lasso_solve_rows,
+                   tk.pin_lasso_solve_rows_ref, args, reps=5)
+    return dict(r, S=S, dtype=str(dtype), case=case, args=args)
 
 
 def k2_kept(run):
@@ -457,11 +529,6 @@ def bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
-
-
-def pin_bound(S, vec_bytes, ops, itemsize=4):
-    """K1/K2: A read once plus the vectors."""
-    return bound(S * S * itemsize + vec_bytes, ops)
 
 
 def snp_bound(p, n, has_na):
@@ -605,8 +672,16 @@ def snp_timing(kernel, twin, packed, n, imp, seed):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def timing_line(r):
-    return (f"kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, bound "
+# K3 and K4 before their redesign (four decodes a byte, an fma a code):
+# 1.875 ms on the GWAS matrix and 0.263 ms on the phased one, float32
+# (NVIDIA H100 80GB HBM3, 700.00 W; the earlier chip_smoke.py, phases 9
+# and 10)
+SNP_OLD_MS = {"snp_mul": 1.875, "snp_mul_no_na": 0.263}
+
+
+def timing_line(r, name):
+    return (f"kernel {r['ms']:.3f} ms (before: {SNP_OLD_MS[name]:.3f}), "
+            f"twin {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), cuBLAS gemv on the "
             f"decoded f32 matrix {r['library_ms']:.3f} ms{r['note']}")
 
@@ -1075,16 +1150,47 @@ def main():
     phase("build", f"{build_s:.1f} s, nvcc {_build.build_seconds:.1f} s; "
           + " / ".join(regs))
 
-    # 3. K1 against its twin
+    # 3. K1 against its twin: the whole solve, bit-equal
     k1 = []
     for dtype in (torch.float32, torch.float64):
         for S in (64, 1000, 1024):
-            r = k1_case(S, dtype, seed=S)
-            k1.append(r)
-            phase("K1", f"S={S} {r['dtype']}: max|diff| {r['max_abs_err']:.3e}"
-                  f" iters {r['iters']}/{r['iters_twin']} active "
-                  f"{r['n_active']} kernel {r['ms']:.3f} ms twin "
-                  f"{r['plain_ms']:.1f} ms")
+            k1.append(k1_case(S, dtype, seed=S))
+    # warm starts: an active list K1 keeps resident (32 rows of the 49 it
+    # holds at S = 1024 in float32) and one it streams (32 of 22 in
+    # float64)
+    for dtype in (torch.float32, torch.float64):
+        k1.append(k1_case(1024, dtype, seed=7, case=("warm", 0.04)))
+    for r in k1:
+        old = K1_OLD_MS.get((r["S"], r["dtype"])) if r["case"] == "cold" \
+            else None
+        phase("K1", f"S={r['S']} {r['dtype']} {r['case']}: bit-equal to the "
+              f"twin; iters {r['iters']}, active {r['active0']} at entry "
+              f"(K1 keeps {r['resident']} rows resident), {r['n_active']} at "
+              f"exit, updates {r['listed']} (moved {r['moved']}); kernel "
+              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update"
+              + (f" (before: {old:.3f} ms = {old * 1e3 / r['listed']:.3f} "
+                 "us an update)" if old else "")
+              + f"; twin {r['plain_ms']:.1f} ms | {card}")
+    warm = [r for r in k1 if r["case"] != "cold"]
+    if not (warm[0]["active0"] <= warm[0]["resident"]
+            and warm[1]["active0"] > warm[1]["resident"]):
+        fail(f"K1 warm starts: active lists {warm[0]['active0']} and "
+             f"{warm[1]['active0']} against {warm[0]['resident']} and "
+             f"{warm[1]['resident']} resident rows: not one of each mode")
+    for S in (128, 1024):
+        r = k1_case(S, torch.float32, seed=S + 1, case=("floor", 0.03))
+        phase("K1", f"floor S={S} float32: {r['listed']} updates ("
+              f"{r['active0']} active, then the valid list; K1 keeps "
+              f"{r['resident']} rows resident), every delta 0 (zero "
+              f"denominators: no AXPY), bit-equal to the twin; "
+              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update: "
+              f"the chain's barrier, broadcast and rows | {card}")
+    for cap_min in (6, 10):
+        caps, n_k1 = odd_cap_case(ad, tk, cap_min)
+        phase("K1", f"screen_cap_min {cap_min}, f64 BASIL fit n=120 p=40: "
+              f"screen capacities {caps}, {n_k1} K1 launches, the same path "
+              f"as the default capacity's | {card}")
+    torch.cuda.empty_cache()
 
     # 4. K2 against its twin: the whole solve, bit-equal
     k2 = []
@@ -1143,6 +1249,15 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if counts_5["pin_lasso_solve"] <= 0:
         fail("headline fit launched K1 no time")
+    prof5 = profile_fit(ad, Xm, y, **kw)
+    k1_prof = [] if prof5 is None else [
+        v for name, v in prof5[2].items() if "pin_lasso_solve_kernel" in name]
+    k1_line = "K1 device time not measured"
+    if k1_prof:
+        k1_n, k1_dev = map(sum, zip(*k1_prof))
+        k1_line = (f"K1 device time {k1_dev:.1f} ms in {k1_n} launches, "
+                   f"{k1_dev / k1_n:.3f} ms a launch")
+    phase("headline", f"{profile_line(prof5)}; {k1_line} | {card}")
     del Xm
 
     # 6. a screen set past 1024: K2 carries the pin solves (warm-up, the
@@ -1305,9 +1420,9 @@ def main():
                                      GWAS_N, Xm9._impute, seed=90)
     k3_path_ms = counts9["snp_mul"] * snp_time["snp_mul"]["ms"]
     phase("K3", f"on the GWAS matrix, p={GWAS_P} n={GWAS_N} f32: "
-          f"{timing_line(snp_time['snp_mul'])}; launches x kernel ms "
-          f"{k3_path_ms:.1f} ms, {k3_path_ms / (wall9 * 1e3):.2f} of the "
-          f"path's wall | {card}")
+          f"{timing_line(snp_time['snp_mul'], 'snp_mul')}; launches x "
+          f"kernel ms {k3_path_ms:.1f} ms, "
+          f"{k3_path_ms / (wall9 * 1e3):.2f} of the path's wall | {card}")
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()
@@ -1336,9 +1451,9 @@ def main():
         seed=100)
     k4_path_ms = counts10["snp_mul_no_na"] * snp_time["snp_mul_no_na"]["ms"]
     phase("K4", f"on the phased matrix, p={p10} n={PHASED_N} f32: "
-          f"{timing_line(snp_time['snp_mul_no_na'])}; launches x kernel ms "
-          f"{k4_path_ms:.1f} ms, {k4_path_ms / (wall10 * 1e3):.2f} of the "
-          f"path's wall | {card}")
+          f"{timing_line(snp_time['snp_mul_no_na'], 'snp_mul_no_na')}; "
+          f"launches x kernel ms {k4_path_ms:.1f} ms, "
+          f"{k4_path_ms / (wall10 * 1e3):.2f} of the path's wall | {card}")
     del Xm10, io10
     torch.cuda.empty_cache()
 
@@ -1558,18 +1673,16 @@ def main():
     torch.cuda.empty_cache()
 
     # 15. the kernels' line
-    k1_main = next(r for r in k1 if r["S"] == 1024
+    k1_main = next(r for r in k1 if r["S"] == 1024 and r["case"] == "cold"
                    and r["dtype"] == "torch.float32")
     k2_main = next(r for r in k2 if r["S"] == 2048 and r["case"] == "cold"
                    and r["dtype"] == "torch.float32")
-    S1, S2 = 1024, 2048
-    k1_bound = pin_bound(S1, 4 * S1 * 4 + 2 * S1 + 2 * S1 * 4 + S1 + 12,
-                         2 * S1 * k1_main["n_active"])
-    # the rows of the coordinates that move, each read once; beta and grad
-    # in and out; the slot buffers (G = S) in and the flags out; an AXPY
-    # of S a moving update
-    k2_bound = bound(k2_main["rows"] * S2 * 4 + 4 * S2 * 4 + S2 * 22 + 12,
-                     2 * S2 * k2_main["moved"])
+    # K1 and K2: the rows of the coordinates that move, each read once;
+    # beta and grad in and out; the slot buffers (G = S) in and the flags
+    # out; an AXPY of S a moving update
+    k1_bound, k2_bound = (
+        bound(r["rows"] * S * 4 + 4 * S * 4 + S * 22 + 12, 2 * S * r["moved"])
+        for r, S in ((k1_main, 1024), (k2_main, 2048)))
     kernels = {"kernels": [
         {"name": "pin_lasso_solve", "route": "cuda",
          "source": "adelie_tpu_torch/csrc/pin_kernels.cu",

@@ -95,6 +95,32 @@ def test_screen_past_1024_takes_k2(monkeypatch):
     assert solves and solves == [c for c in caps if c > 1024]
 
 
+@pytest.mark.parametrize("cap_min", [6, 10])
+def test_screen_cap_min_not_a_multiple_of_4(cap_min):
+    """The pin kernels take a screen capacity that is a multiple of 4, so a
+    ``screen_cap_min`` that is not one is rounded up: BASIL's small first
+    screens get capacities of 8 or 12, and the path is the default
+    capacity's."""
+    X, y, w, pen = _data(120, 40, 6, seed=5)
+
+    def fit():
+        return ta.grpnet(X, ta.glm.gaussian(y, weights=w), penalty=pen,
+                         lmda_path_size=20, device="cpu")
+
+    ta.set_configs("screen_all_max", 0)
+    try:
+        ref = fit()
+        ta.set_configs("screen_cap_min", cap_min)
+        ts = fit()
+    finally:
+        ta.set_configs("screen_all_max", None)
+        ta.set_configs("screen_cap_min", None)
+    caps = ts.benchmark["pin_caps"]
+    assert all(c % 4 == 0 for c in caps), caps
+    assert min(caps) < 2 * cap_min
+    _assert_same_path(ref, ts)
+
+
 _WS_KEYS = ("screen_set", "screen_begins", "screen_beta", "screen_is_active",
             "lmda", "lmda_max", "X_means", "y_mean", "y_var", "rsq", "resid",
             "resid_sum", "grad", "abs_grad")

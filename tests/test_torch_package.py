@@ -173,14 +173,12 @@ def test_wrappers_refuse_other_devices():
     A = torch.empty((4, 4), device="meta")
     v = torch.empty(4, device="meta")
     b = torch.empty(4, dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError, match="no kernel or twin"):
-        tk.pin_lasso_solve(A, v, v, v, b, b, v, 0.1, 1.0, 1e-7, 10, 0.0)
-    with pytest.raises(ValueError, match="no kernel or twin"):
-        tk.pin_lasso_solve_rows(A, v, v, torch.empty(4, dtype=torch.int64,
-                                                      device="meta"),
-                                torch.empty(4, dtype=torch.int32,
-                                            device="meta"),
-                                v[:, None], v, b, 0.1, 1.0, 1e-7, 10, 0.0)
+    slots = (torch.empty(4, dtype=torch.int64, device="meta"),
+             torch.empty(4, dtype=torch.int32, device="meta"), v[:, None], v,
+             b)
+    for solve in (tk.pin_lasso_solve, tk.pin_lasso_solve_rows):
+        with pytest.raises(ValueError, match="no kernel or twin"):
+            solve(A, v, v, *slots, 0.1, 1.0, 1e-7, 10, 0.0)
 
 
 @pytest.mark.parametrize("name,tf32", [("highest", False), ("float32", False),

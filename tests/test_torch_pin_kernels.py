@@ -32,14 +32,18 @@ sys.setrecursionlimit(100000)
 
 
 def _problem(n, S, n_invalid, seed, dtype):
-    """The screen problem of tests/test_pin_pallas.py, in numpy."""
+    """The screen problem of tests/test_pin_pallas.py, in numpy.
+    ``n_invalid``: the last slots invalid, or "holes": every fifth slot from
+    the fourth invalid, between valid ones."""
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n, S))
     A = (X.T @ X / n).astype(dtype)
     y = X[:, 0] - X[:, min(5, S - 1)] + 0.1 * rng.standard_normal(n)
     grad = (X.T @ y / n).astype(dtype)
     valid = np.ones(S, bool)
-    if n_invalid:
+    if n_invalid == "holes":
+        valid[3::5] = False
+    elif n_invalid:
         valid[-n_invalid:] = False
     diag = np.where(valid, np.diag(A), 0).astype(dtype)
     pen = rng.uniform(0.5, 1.5, S).astype(dtype)
@@ -50,11 +54,24 @@ K1_CASES = [
     (32, 0, 0.05, 1.0),
     (64, 5, 0.02, 1.0),
     (64, 3, 0.05, 0.7),
+    (64, "holes", 0.03, 1.0),
 ]
+
+
+def _slots(diag, valid, pen, act):
+    """K1's slot buffers for one slot a position (q = 1): ``slot_begin,
+    slot_size, eigvals, penalty, is_active`` as torch tensors."""
+    S = len(valid)
+    t = torch.from_numpy
+    return (torch.arange(S, dtype=torch.int64), t(valid.astype(np.int32)),
+            t(np.ascontiguousarray(diag[:, None])), t(pen), t(act))
 
 
 @pytest.mark.parametrize("S,n_invalid,lmda,alpha", K1_CASES)
 def test_k1_twin_matches_pallas_kernel_f32(S, n_invalid, lmda, alpha):
+    """The twin on the slot buffers against the Pallas kernel on positional
+    arrays; "holes" puts invalid slots between valid ones, and a cold start
+    begins every case with an empty active list."""
     A, grad, diag, valid, pen = _problem(300, S, n_invalid, S, np.float32)
     beta0 = np.zeros(S, np.float32)
     act0 = np.zeros(S, bool)
@@ -67,7 +84,7 @@ def test_k1_twin_matches_pallas_kernel_f32(S, n_invalid, lmda, alpha):
     )
     t = torch.from_numpy
     beta, grad_n, act, info = tk.pin_lasso_solve(
-        t(A), t(grad), t(beta0), t(diag), t(valid), t(act0), t(pen),
+        t(A), t(grad), t(beta0), *_slots(diag, valid, pen, act0),
         lmda, alpha, 1e-9, 100000, 0.0,
     )
     rsq, iters, done = info.tolist()
@@ -178,8 +195,8 @@ def test_zero_denominator_keeps_beta(kernel):
     if kernel == "k1":
         diag = np.diag(A).copy()
         b, g, act, info = tk.pin_lasso_solve(
-            t(A), t(grad), t(beta), t(diag), torch.ones(S, dtype=torch.bool),
-            torch.zeros(S, dtype=torch.bool), torch.ones(S, dtype=torch.float64),
+            t(A), t(grad), t(beta),
+            *_slots(diag, np.ones(S, bool), np.ones(S), np.zeros(S, bool)),
             0.05, 1.0, 1e-12, 100000, 0.0,
         )
         assert info.tolist()[2] == 1.0

@@ -237,6 +237,65 @@ def test_streamed_unpenalized_groups_and_offsets(option, basil, panel):
         assert (ts.betas.toarray()[:, [2, 7]] != 0).all()
 
 
+def _assert_same_path_at_tie(js, ts):
+    """``_assert_same_path`` with one exception: when the path starts at
+    ``lmda_max``, the group that sets it ties its threshold there.  The
+    streamed gradient sets ``lmda_max`` and the screen gradient starts the
+    positioning fit: two sums in different orders, whose last bits decide
+    whether that fit moves the group by a rounding step (on this panel the
+    port's screen gradient is two ulps larger in magnitude than its
+    streamed one, with or without ``offsets``, and the JAX package's two
+    are equal); its flag then stays set while its coefficient returns to
+    0.  So at that lambda, and only there, the port may count that one
+    group."""
+    assert list(ts.active_sizes[1:]) == list(js.active_sizes[1:])
+    assert ts.active_sizes[0] - js.active_sizes[0] in (0, 1)
+    if ts.active_sizes[0] != js.active_sizes[0]:
+        assert not ts.betas.toarray()[0].any()
+        assert not js.betas.toarray()[0].any()
+    ts.active_sizes[0] = js.active_sizes[0]
+    _assert_same_path(js, ts)
+
+
+def test_streamed_screen_all_with_offsets(panel):
+    """``offsets`` with the whole p = 120 screened up front (the default
+    ``screen_all_max``): the same path, the same active count at every
+    lambda past ``lmda_max`` and the same number of passes."""
+    jio, tio, d = panel
+    kw = dict(lmda_path_size=12,
+              offsets=np.random.default_rng(7).uniform(-0.5, 0.5, 300))
+    jm, tm = _streamed(jio, tio, tile_snps=32)
+    js = ja.grpnet(jm, ja.glm.gaussian(d["y"]), **kw)
+    ts = ta.grpnet(tm, ta.glm.gaussian(d["y"]), **kw)
+    _assert_same_path_at_tie(js, ts)
+    assert tm.sweeps == jm.sweeps
+
+
+@pytest.mark.parametrize("option", ["lmda_path", "max_active_size",
+                                    "ddev_tol", "exit_cond"])
+def test_streamed_options_match_jax(option, panel):
+    """The streamed driver under screen-all with a user lambda path (which
+    starts below ``lmda_max``, so no tie), ``max_active_size``,
+    ``ddev_tol`` and ``exit_cond`` (one lambda a chunk, stopped after
+    three): the JAX package's path and passes."""
+    jio, tio, d = panel
+    kw = {"lmda_path": dict(lmda_path=np.geomspace(0.5, 0.02, 8)),
+          "max_active_size": dict(lmda_path_size=12, max_active_size=6),
+          "ddev_tol": dict(lmda_path_size=12, ddev_tol=1e-2),
+          "exit_cond": dict(lmda_path_size=6,
+                            exit_cond=lambda s: len(s.lmdas) >= 3)}[option]
+    jm, tm = _streamed(jio, tio, tile_snps=32)
+    js = ja.grpnet(jm, ja.glm.gaussian(d["y"]), **kw)
+    ts = ta.grpnet(tm, ta.glm.gaussian(d["y"]), **kw)
+    if option == "lmda_path":
+        _assert_same_path(js, ts)
+    else:
+        _assert_same_path_at_tie(js, ts)
+    assert tm.sweeps == jm.sweeps
+    if option == "exit_cond":
+        assert len(ts.lmdas) == 3
+
+
 def test_warm_start_from_jax_streamed_fit(basil, panel, jax_fits):
     """Lambdas 0-4 of the shared path fitted by adelie_tpu's streamed
     driver, carried over with state_from_numpy, and lambdas 5-11 finished
