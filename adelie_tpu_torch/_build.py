@@ -28,7 +28,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "adelie_tpu_torch"
-SOURCES = (CSRC_DIR / "pin_kernels.cu", CSRC_DIR / "snp_kernels.cu")
+SOURCES = (CSRC_DIR / "pin_kernels.cu", CSRC_DIR / "pin_group_kernels.cu",
+           CSRC_DIR / "snp_kernels.cu")
 # included by the sources: part of the library's hash, never compiled alone
 HEADERS = (CSRC_DIR / "async_copy.cuh",)
 # -fmad=false: no contraction of a*b+c into one rounding, so every
@@ -193,6 +194,12 @@ def _bind(lib) -> None:
         f = getattr(lib, f"adelie_pin_lasso_solve_rows_{suffix}")
         f.argtypes = [ptr] * 16 + [c_int, c_int, real, real, real, real,
                                    c_int, ptr]
+        f.restype = c_int
+        # (14 pointers, S, G, qmax, l1, l2, tol, dbeta_tol, newton_tol,
+        # rsq, newton_max_iters, max_iters, stream)
+        f = getattr(lib, f"adelie_pin_group_solve_{suffix}")
+        f.argtypes = [ptr] * 14 + [c_int] * 3 + [real] * 6 + [c_int, c_int,
+                                                             ptr]
         f.restype = c_int
         # (packed, u_pad, [impute,] out, p, nb, stream)
         for name, n_ptr in (("snp_mul", 4), ("snp_mul_no_na", 3)):

@@ -15,6 +15,9 @@ import torch
 
 @dataclass
 class Configs:
+    # A group update whose ||dbeta||^2 <= dbeta_tol^2 q is skipped, for
+    # groups of size q > 1 (reference configs.hpp: dbeta_tol = 1e-12).
+    dbeta_tol: float = 1e-12
     # Capacity buckets for screen-set buffers (minimum bucket).
     screen_cap_min: int = 64
     group_cap_min: int = 64

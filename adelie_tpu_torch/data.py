@@ -1,17 +1,18 @@
-"""Synthetic SNP data generators (reference adelie/data.py:222,362).
+"""Synthetic data generators (reference adelie/data.py:84,222,362).
 
-Counterpart of the SNP generators of ``adelie_tpu/data.py``, for a gaussian
-response with one class: the same ``numpy.random.default_rng`` calls in the
-same order, so one seed gives the same arrays in both packages (``X``,
-``y`` and, unphased, ``beta``; phased, ``ancestries``).  Other GLMs and ``K > 1`` raise: they come with the
-GLM slice (ROADMAP.md queue 5).
+Counterpart of ``dense`` and the SNP generators of ``adelie_tpu/data.py``,
+for a gaussian response with one class: the same
+``numpy.random.default_rng`` calls in the same order, so one seed gives the
+same arrays in both packages (``X``, ``y``, ``groups`` and ``penalty``;
+unphased, ``beta``; phased, ``ancestries``).  Other GLMs and ``K > 1``
+raise: they come with the GLM slice (ROADMAP.md queue 1 item 3).
 """
 
 import numpy as np
 
 from . import glm as glm_mod
 
-__all__ = ["snp_phased_ancestry", "snp_unphased"]
+__all__ = ["dense", "snp_phased_ancestry", "snp_unphased"]
 
 
 def _check_gaussian(glm, K):
@@ -28,6 +29,63 @@ def _gaussian(eta, snr, rng, n, dtype, cast_y):
     if cast_y and dtype is not None:
         y = y.astype(dtype)
     return y, glm_mod.gaussian(y, dtype=dtype)
+
+
+def _make_groups(p, G, equal_groups, rng):
+    if equal_groups:
+        groups = (p // G) * np.arange(G)
+    else:
+        cuts = rng.choice(np.arange(1, p), size=G - 1, replace=False)
+        groups = np.sort(np.concatenate([[0], cuts])).astype(int)
+    group_sizes = np.diff(np.concatenate([groups, [p]])).astype(int)
+    return groups, group_sizes
+
+
+def dense(
+    n: int,
+    p: int,
+    G: int,
+    *,
+    K: int = 1,
+    glm: str = "gaussian",
+    equal_groups=False,
+    rho: float = 0.0,
+    sparsity: float = 0.95,
+    zero_penalty: float = 0.0,
+    snr: float = 1.0,
+    seed: int = 0,
+):
+    """Dense simulated dataset (reference data.py:84): ``G`` groups over
+    ``p`` equicorrelated features (correlation ``rho``), random group
+    boundaries unless ``equal_groups`` (then ``p // G`` columns a group,
+    the last group taking the rest), a sparse coefficient vector, a
+    gaussian response with signal-to-noise ratio ``snr``."""
+    _check_gaussian(glm, K)
+    rng = np.random.default_rng(seed)
+    groups, group_sizes = _make_groups(p, G, equal_groups, rng)
+
+    penalty = np.sqrt(group_sizes).astype(float)
+    if zero_penalty > 0:
+        penalty[rng.choice(G, int(zero_penalty * G), replace=False)] = 0
+    penalty /= np.linalg.norm(penalty) / np.sqrt(p)
+
+    Z = rng.standard_normal(n)
+    X = np.sqrt(max(rho, 0.0)) * Z[:, None] + np.sqrt(1 - max(rho, 0.0)) * (
+        rng.standard_normal((n, p))
+    )
+
+    beta = rng.standard_normal((p, K))
+    zero_idx = rng.choice(p, int(sparsity * p), replace=False)
+    beta[zero_idx] = 0.0
+    _, glm_obj = _gaussian((X @ beta)[:, :1], snr, rng, n, None,
+                           cast_y=False)
+    return {
+        "X": np.asfortranarray(X),
+        "glm": glm_obj,
+        "groups": groups,
+        "group_sizes": group_sizes,
+        "penalty": penalty,
+    }
 
 
 def snp_unphased(

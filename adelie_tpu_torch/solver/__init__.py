@@ -80,10 +80,14 @@ def grpnet(
     device of a matrix ``X`` or, for an array, ``"cuda"``, which raises
     without a GPU: pass ``device="cpu"`` to fit on the CPU.
 
+    ``groups`` (the first column of each group, ascending; default one
+    column a group) may give groups of any size: each group's update is
+    the block update of ``bcd.newton_solver`` in its eigenbasis, to
+    ``newton_tol`` within ``newton_max_iters`` steps.
+
     Accepted for the JAX package's signature and ignored: ``n_threads``
     and ``progress_bar``; ``irls_max_iters`` and ``irls_tol`` until GLMs
-    are ported, ``newton_tol`` and ``newton_max_iters`` until groups of
-    size > 1 are (ROADMAP.md queue 1 items 2-3).  ``check_state=True``
+    are ported (ROADMAP.md queue 1 item 3).  ``check_state=True``
     raises ``NotImplementedError`` until the state checks are ported
     (ROADMAP.md queue 1 item 7).
     """
@@ -124,9 +128,6 @@ def grpnet(
         groups = np.arange(p, dtype=int)
     groups = np.asarray(groups, int)
     group_sizes = np.diff(np.concatenate([groups, [p]])).astype(int)
-    if group_sizes.max() > 1:
-        raise NotImplementedError(
-            "groups of size > 1 are not ported yet (ROADMAP.md queue 3)")
     G = len(groups)
     if penalty is None:
         penalty = np.sqrt(group_sizes).astype(float)
@@ -137,6 +138,7 @@ def grpnet(
         X=X, groups=groups, group_sizes=group_sizes, alpha=float(alpha),
         penalty=penalty, intercept=bool(intercept), dtype=dtype, n=n, p=p,
         device=dev, max_iters=int(max_iters), tol=float(tol),
+        newton_tol=float(newton_tol), newton_max_iters=int(newton_max_iters),
         adev_tol=float(adev_tol), ddev_tol=float(ddev_tol),
         early_exit=bool(early_exit), min_ratio=float(min_ratio),
         lmda_path_size=int(lmda_path_size),

@@ -37,7 +37,7 @@ class ScreenFit:
 
 
 def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
-               max_iters, intercept):
+               max_iters, intercept, dbeta_tol, newton_tol, newton_max_iters):
     """Screen gradient, pin solve and residual update at one lambda."""
     Xs = cache.Xs
     with matmul_precision():
@@ -48,8 +48,8 @@ def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
 
     beta_n, _, active_n, rsq_n, iters, done = pin_cov_solve(
         cache.A, grad_s, beta, cache.slot_begin, cache.slot_size,
-        cache.eigvals, cache.penalty_slots, active, lmda, alpha, tol,
-        max_iters, rsq,
+        cache.eigvals, cache.eigvecs, cache.penalty_slots, active, lmda,
+        alpha, tol, dbeta_tol, newton_tol, newton_max_iters, max_iters, rsq,
     )
 
     with matmul_precision():
@@ -58,8 +58,8 @@ def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
     return ScreenFit(beta_n, active_n, resid_n, resid_sum, rsq_n, iters, done)
 
 
-def full_kkt(X, cache, *, w, X_means, group_ids, penalty_cols,
-             penalty_groups, is_screen, alpha, intercept, num_groups):
+def full_kkt(X, cache, *, w, X_means, group_cols, penalty_cols,
+             penalty_groups, is_screen, alpha, intercept):
     """The KKT check of a matrix in device memory: ``check(fit, lmda)``
     forms the full gradient, the group norms and the verdict (reference
     solver_base.hpp:410-433) and returns ``(abs_grad, kkt, resid_sum)``
@@ -70,8 +70,8 @@ def full_kkt(X, cache, *, w, X_means, group_ids, penalty_cols,
         if intercept:
             grad = grad - fit.resid_sum * X_means
         abs_grad = abs_grad_kernel(
-            grad, cache.cols_padded, fit.beta, penalty_cols, group_ids,
-            (1.0 - alpha) * min(lmda, 1e30), num_groups,
+            grad, cache.cols_padded, fit.beta, penalty_cols, group_cols,
+            (1.0 - alpha) * min(lmda, 1e30),
         )
         viol = abs_grad > lmda * alpha * penalty_groups
         kkt = ~torch.any(viol & ~is_screen)
@@ -112,7 +112,8 @@ class Emit:
 
 def gaussian_chunk_step(cache, carry: ChunkCarry, lmdas, *, w, alpha, tol,
                         max_iters, y_var, adev_tol, ddev_tol, early_exit,
-                        sweep_budget, intercept, kkt=None):
+                        sweep_budget, intercept, dbeta_tol, newton_tol,
+                        newton_max_iters, kkt=None):
     """Fit the lambdas of a chunk in order from ``carry``.
 
     ``kkt`` is a ``full_kkt`` check, or None for the optimistic loop of the
@@ -126,7 +127,8 @@ def gaussian_chunk_step(cache, carry: ChunkCarry, lmdas, *, w, alpha, tol,
     cum_iters = 0
     for lmda in lmdas:
         f = screen_fit(cache, carry.beta, carry.active, carry.resid,
-                       carry.rsq, w, lmda, alpha, tol, max_iters, intercept)
+                       carry.rsq, w, lmda, alpha, tol, max_iters, intercept,
+                       dbeta_tol, newton_tol, newton_max_iters)
         if kkt is None:
             abs_grad, ok, resid_sum = None, True, f.resid_sum
         else:

@@ -72,7 +72,9 @@ class GaussianNaiveDriver:
                     adev_tol=s.adev_tol, ddev_tol=s.ddev_tol,
                     early_exit=bool(s.early_exit),
                     sweep_budget=configs.chunk_sweep_budget,
-                    intercept=s.intercept)
+                    intercept=s.intercept, dbeta_tol=configs.dbeta_tol,
+                    newton_tol=s.newton_tol,
+                    newton_max_iters=s.newton_max_iters)
 
     def _run_chunk(self, lmdas, record):
         """Fit a chunk of lambdas.
@@ -100,10 +102,10 @@ class GaussianNaiveDriver:
         )
         check = full_kkt(
             s.X, cache, w=s.weights, X_means=s.X_means,
-            group_ids=s._group_ids, penalty_cols=s._penalty_cols,
+            group_cols=s._group_cols, penalty_cols=s._penalty_cols,
             penalty_groups=self._penalty_groups_dev,
             is_screen=s.screen_mask_dev(), alpha=s.alpha,
-            intercept=s.intercept, num_groups=len(s.groups),
+            intercept=s.intercept,
         )
         carry, emits = gaussian_chunk_step(
             cache, carry, lmdas, kkt=check, **self._loop_args())

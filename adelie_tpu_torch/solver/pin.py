@@ -1,35 +1,30 @@
-"""Screen-set ("pin") solver in covariance form, groups of size 1.
+"""Screen-set ("pin") solver in covariance form.
 
-Counterpart of the q = 1 parts of ``adelie_tpu/solver/pin.py``.  The screened
+Counterpart of ``adelie_tpu/solver/pin.py``.  The screened
 columns are gathered once per screen-set change into a dense block ``Xs``,
 whose weighted (centered) Gram
 
     A = Xs^T diag(w) Xs - means means^T
 
-carries the coordinate descent: with the centered gradient ``g`` the update
-of coordinate i needs only ``g_i``, ``A[i, i]`` and, after it, the row AXPY
-``g -= delta A[i, :]``.  Each solve is one launch of one of the two
-kernels of ``pin_kernels``, K1 when S <= 1024 and K2 above, both on the
-screen's slot buffers as they are, and one host copy of
-``(rsq, iters, done)`` after it.  Dispatch depends only on S,
-never on the device; the kernels' wrappers decide between kernel and twin
-by the tensors' device.
+carries the block coordinate descent: with the centered gradient ``g`` the
+update of a group at positions ``b .. b+q`` needs only ``g[b:b+q]``, its
+diagonal block of ``A`` (through the block's eigendecomposition, one
+batched ``eigh`` a screen) and, after it, ``g -= A[:, b:b+q] dbeta``.
 
-Groups of size > 1 are not ported yet (queue 3 of ROADMAP.md).
+Each solve is one kernel launch and one host copy of its ``info`` after it.
+The dispatch depends on the screen's padded block width ``qmax`` and on S,
+never on the device: ``qmax == 1`` runs K1 (S <= 1024) or K2 (above) of
+``pin_kernels``, the closed-form lasso update; ``qmax > 1`` runs K6 of
+``pin_group_kernels`` for every group, size-1 groups included, as the JAX
+package's grouped sweep does.  The kernels' wrappers decide between kernel
+and twin by the tensors' device.
 """
 
 import torch
 
 from ..configs import matmul_precision
+from .pin_group_kernels import pin_group_solve, record_newton
 from .pin_kernels import MAX_PALLAS_S, pin_lasso_solve, pin_lasso_solve_rows
-
-
-def _q1_only(qmax):
-    if qmax != 1:
-        raise NotImplementedError(
-            "groups of size > 1 are not ported yet (ROADMAP.md queue 3: "
-            "groups of size > 1)"
-        )
 
 
 # --------------------------------------------------------------------------- #
@@ -82,14 +77,32 @@ def screen_gram_extend(A_pad, Xs, Xnew, w, means_pad, s_old: int,
 
 
 def screen_eigh(A, slot_begin, slot_size, qmax: int):
-    """Per-slot "eigendecomposition" of the diagonal blocks, q = 1 branch:
-    the eigenvalue is the clamped diagonal entry, the eigenvector 1.
-    Invalid slots (size 0) get eigenvalue 0."""
-    _q1_only(qmax)
-    lam = torch.where(slot_size > 0, A[slot_begin, slot_begin],
-                      torch.zeros((), dtype=A.dtype, device=A.device))
-    lam = torch.clamp(lam, min=0.0)[:, None]
-    return lam, torch.ones_like(lam)[:, :, None]
+    """Batched eigendecomposition of the slots' diagonal blocks of ``A``.
+
+    Returns ``(eigvals (G, qmax), eigvecs (G, qmax, qmax))``.  Each block is
+    ``A[b:b+qmax, b:b+qmax]`` with the rows and columns past the slot's
+    size zeroed (reference per-group ``SelfAdjointEigenSolver``,
+    solver_gaussian_naive.hpp:113): one batched ``torch.linalg.eigh``, the
+    padding giving eigenvalue 0, which the block update treats as inert.
+    Negative eigenvalues are clamped to 0 (reference :127-131).  At
+    ``qmax == 1`` the eigenvalue is the clamped diagonal and the vector 1.
+    Invalid slots (size 0) get eigenvalues 0.
+    """
+    if qmax == 1:
+        lam = torch.where(slot_size > 0, A[slot_begin, slot_begin],
+                          torch.zeros((), dtype=A.dtype, device=A.device))
+        lam = torch.clamp(lam, min=0.0)[:, None]
+        return lam, torch.ones_like(lam)[:, :, None]
+    S = A.shape[0]
+    lane = torch.arange(qmax, device=A.device)
+    idx = torch.clamp(slot_begin[:, None] + lane, max=S - 1)   # (G, qmax)
+    mask = lane[None, :] < slot_size[:, None]
+    blocks = A[idx[:, :, None], idx[:, None, :]]
+    blocks = torch.where(mask[:, :, None] & mask[:, None, :], blocks,
+                         torch.zeros((), dtype=A.dtype, device=A.device))
+    lam, V = torch.linalg.eigh(blocks)
+    # eigh on the card returns column-major blocks; K6 reads row-major ones
+    return torch.clamp(lam, min=0.0), V.contiguous()
 
 
 # --------------------------------------------------------------------------- #
@@ -97,23 +110,36 @@ def screen_eigh(A, slot_begin, slot_size, qmax: int):
 # --------------------------------------------------------------------------- #
 
 
-def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
-                  is_active, lmda, alpha, tol, max_iters, rsq):
-    """Solve the pinned lasso / elastic net at one lambda.
+def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, eigvecs,
+                  penalty, is_active, lmda, alpha, tol, dbeta_tol, newton_tol,
+                  newton_max_iters, max_iters, rsq):
+    """Solve the pinned group elastic net at one lambda.
 
-    Alternates (a) CD over the active set until ``convg < tol`` with (b)
-    full screen-set sweeps that grow the active set, and stops when a full
-    sweep converges (reference ``pin::naive::solve``).  ``A`` (S, S);
-    ``grad, beta`` (S,); slot buffers (G_cap,); ``eigvals`` (G_cap, 1).
-    Returns ``(beta, grad, is_active, rsq, iters, done)`` with the last
-    three on the host.
+    Alternates (a) coordinate descent over the active set until
+    ``convg < tol`` with (b) full screen-set sweeps that grow the active
+    set, and stops when a full sweep converges (reference
+    ``pin::naive::solve``).  ``A`` (S, S); ``grad, beta`` (S,); slot buffers
+    (G_cap,); ``eigvals`` (G_cap, qmax), ``eigvecs`` (G_cap, qmax, qmax).
+    ``dbeta_tol``, ``newton_tol`` and ``newton_max_iters`` serve the block
+    updates of groups in a ``qmax > 1`` solve.  Returns ``(beta, grad,
+    is_active, rsq, iters, done)`` with the last three on the host; a
+    grouped solve's Newton counts go to ``pin_group_kernels.newton``.
     """
-    _q1_only(eigvals.shape[1])
-    solve = (pin_lasso_solve if A.shape[0] <= MAX_PALLAS_S
-             else pin_lasso_solve_rows)
-    beta, grad, is_active, info = solve(
-        A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
-        eigvals, penalty, is_active, lmda, alpha, tol, max_iters, rsq,
-    )
-    rsq_n, iters, done = info.tolist()
+    if eigvals.shape[1] > 1:
+        beta, grad, is_active, info = pin_group_solve(
+            A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
+            eigvals, eigvecs, penalty, is_active, lmda, alpha, tol,
+            dbeta_tol, newton_tol, newton_max_iters, max_iters, rsq,
+        )
+        info = info.tolist()
+        record_newton(info)
+    else:
+        solve = (pin_lasso_solve if A.shape[0] <= MAX_PALLAS_S
+                 else pin_lasso_solve_rows)
+        beta, grad, is_active, info = solve(
+            A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
+            eigvals, penalty, is_active, lmda, alpha, tol, max_iters, rsq,
+        )
+        info = info.tolist()
+    rsq_n, iters, done = info[:3]
     return beta, grad, is_active, rsq_n, int(iters), bool(done)

@@ -269,16 +269,41 @@ def _pin_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
     """The twins' loop: active phases and ``full_sweep`` passes."""
     dt = _scalar_dtype(A)
     l1, l2 = _l1_l2(dt, lmda, alpha)
+    # Python floats (exact values of the dtype) to mix with tensors
+    c = _Consts(A, slot_begin, slot_size, eigvals, penalty, float(l1),
+                float(l2))
+
+    def active_sweep(carry):
+        # the active set is fixed during this phase: compact it once
+        plan_a = _make_plan(carry[2] & (slot_size > 0), c)
+        return lambda carry: _sweep_q1(carry, c, plan_a, update_active=False)
+
+    (beta, grad, is_active, rsq), iters, done = solve_loop(
+        dt, dt(torch.max(torch.abs(eigvals)).item()), tol, max_iters,
+        (beta, grad, is_active, rsq), active_sweep,
+        lambda carry: full_sweep(carry, c))
+    info = torch.tensor([float(rsq), float(iters), float(done)],
+                        dtype=A.dtype, device=A.device)
+    return beta, grad, is_active, info
+
+
+def solve_loop(dt, abs_eig_max, tol, max_iters, carry, active_sweep,
+               full_sweep):
+    """The outer loop of every pin solve's twin (``pin_cov_solve`` of the
+    JAX package): an active phase (at least one sweep, then until
+    convg < tol_f, a floor-gated stall or ``max_iters``) and a full sweep,
+    repeated until a full sweep's convg < tol_f, a stall, ``max_iters`` or
+    a NaN.  ``carry`` is ``(beta, grad, is_active, rsq)``;
+    ``active_sweep(carry)`` starts a phase and returns its sweep, and a
+    sweep or ``full_sweep(carry)`` returns the carry and its convg.
+    ``abs_eig_max`` is max |eigvals|.  Returns ``(carry, iters, done)``."""
     # dtype-feasibility floor and floor-gated stall: a stall exit needs
     # three sweeps in a row improving convg by < 1% while convg is
     # already at the dtype's floor
     eps = dt(np.finfo(dt).eps)
-    lam_max = np.maximum(dt(torch.max(torch.abs(eigvals)).item()), dt(1.0))
+    lam_max = np.maximum(abs_eig_max, dt(1.0))
     tol = np.maximum(dt(tol), dt(100.0) * lam_max * (dt(10.0) * eps) ** 2)
     stall_floor = dt(1e8) * lam_max * eps * eps
-    # Python floats (exact values of the dtype) to mix with tensors
-    c = _Consts(A, slot_begin, slot_size, eigvals, penalty, float(l1),
-                float(l2))
 
     def next_slow(slow, convg, prev):
         return slow + 1 if convg >= dt(0.99) * prev else 0
@@ -286,38 +311,31 @@ def _pin_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals, penalty,
     def stalled(slow, convg):
         return slow >= 3 and convg <= stall_floor
 
-    def active_phase(beta, grad, is_active, rsq, iters):
-        # the active set is fixed during this phase: compact it once
-        plan_a = _make_plan(is_active & (slot_size > 0), c)
-        beta, grad, is_active, rsq, convg = _sweep_q1(
-            (beta, grad, is_active, rsq), c, plan_a, update_active=False)
+    def active_phase(carry, iters):
+        sweep = active_sweep(carry)
+        *carry, convg = sweep(carry)
         convg, slow, it = dt(convg), 0, iters + 1
         while convg >= tol and it < max_iters and not stalled(slow, convg):
             prev = convg
-            beta, grad, is_active, rsq, convg = _sweep_q1(
-                (beta, grad, is_active, rsq), c, plan_a, update_active=False)
+            *carry, convg = sweep(carry)
             convg = dt(convg)
             slow = next_slow(slow, convg, prev)
             it += 1
-        return beta, grad, is_active, rsq, it
+        return carry, it
 
     convg, slow, iters, done = dt(np.inf), 0, 0, False
     while (not done and iters < max_iters and not stalled(slow, convg)
            and not np.isnan(convg)):
         prev = convg
-        beta, grad, is_active, rsq, iters = active_phase(
-            beta, grad, is_active, rsq, iters)
-        beta, grad, is_active, rsq, convg = full_sweep(
-            (beta, grad, is_active, rsq), c)
+        carry, iters = active_phase(carry, iters)
+        *carry, convg = full_sweep(carry)
         convg = dt(convg)
         slow = next_slow(slow, convg, prev)
         iters += 1
         done = bool(convg < tol)
     # a floor-gated stall is convergence at the dtype's floor; NaN is failure
     done = (done or stalled(slow, convg)) and not np.isnan(convg)
-    info = torch.tensor([float(rsq), float(iters), float(done)],
-                        dtype=A.dtype, device=A.device)
-    return beta, grad, is_active, info
+    return tuple(carry), iters, done
 
 
 @dataclass

@@ -18,11 +18,42 @@ from ..utils import TORCH_DTYPE, bucket, bucket_pow2
 from .pin import insert_cols, screen_eigh, screen_gram, screen_gram_extend
 
 
-def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, group_ids,
-                    l2_scale, num_groups):
+def group_cols(groups, group_sizes, p):
+    """(G, Q) int64 column indices of each group, ``Q`` the largest group
+    size rounded up to a power of 2, padded with ``p`` (a zero entry that
+    ``group_sum`` appends)."""
+    Q = bucket_pow2(int(group_sizes.max())) if len(group_sizes) else 1
+    lane = np.arange(Q)
+    cols = np.where(lane[None, :] < group_sizes[:, None],
+                    groups[:, None] + lane[None, :], p)
+    return cols.astype(np.int64)
+
+
+def group_sum(x, cols):
+    """Per-group sums of ``x`` (p,) or (p, C) over the groups of ``cols``
+    (``group_cols``), in a fixed order: the (G, Q) gather, zero-padded, is
+    folded in halves, ``x[:, :Q/2] + x[:, Q/2:]`` and so on.  So the sums do
+    not depend on the device or the run (``index_add_`` on the card adds by
+    atomics, in no fixed order), and a group of one is its entry."""
+    if cols.shape[1] == 1:
+        # every group one column: group g is column g
+        return x
+    pad = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    g = torch.cat([x, pad])[cols]
+    h = g.shape[1] // 2
+    while h:
+        g = g[:, :h] + g[:, h:2 * h]
+        h //= 2
+    return g[:, 0]
+
+
+def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, cols,
+                    l2_scale):
     """Per-group norms ``||grad_g - (1-alpha) lmda pen_g beta_g||_2``
-    (reference update_abs_grad, solver_base.hpp:21-110).  Padded slots
-    (``cols_padded < 0``) are dropped; the segment sum is an ``index_add_``.
+    (reference update_abs_grad, solver_base.hpp:21-110) over the groups of
+    ``cols`` (``group_cols``).  Padded slots (``cols_padded < 0``) are
+    dropped; the squares are summed by ``group_sum``.
     """
     # padded slots write to a spare last entry, which is then cut off
     p = grad.shape[0]
@@ -32,9 +63,7 @@ def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, group_ids,
     # (penalty * beta) first: at the huge-lambda dry fit beta is nonzero only
     # where penalty == 0, so the large l2_scale meets no nonzero operand
     gadj = grad - l2_scale * (penalty_cols * beta_cols)
-    sq = torch.zeros(num_groups, dtype=grad.dtype, device=grad.device)
-    sq.index_add_(0, group_ids, gadj * gadj)
-    return torch.sqrt(torch.clamp(sq, min=0.0))
+    return torch.sqrt(torch.clamp(group_sum(gadj * gadj, cols), min=0.0))
 
 
 def screen_cap(n: int) -> int:
@@ -62,6 +91,7 @@ class ScreenCache:
         self.A = None
         self.means_s = None
         self.eigvals = None
+        self.eigvecs = None
         self._weights_ref = None   # weights tensor A/means were built with
         self._pending_ext = None   # (s_old, Xnew) awaiting rebuild_weighted
         self._prev_ss = None       # screen_set of the last structure build
@@ -223,7 +253,7 @@ class ScreenCache:
         self._weights_ref = weights
         self._A_prev = self.A
         self._means_prev = self.means_s
-        self.eigvals, _ = screen_eigh(
+        self.eigvals, self.eigvecs = screen_eigh(
             self.A, self.slot_begin, self.slot_size, self.qmax
         )
 
@@ -257,6 +287,9 @@ class NaiveStateBase:
     # configs
     max_iters: int = int(1e5)
     tol: float = 1e-7
+    # the block updates of groups of size > 1 (bcd.newton_solver)
+    newton_tol: float = 1e-12
+    newton_max_iters: int = 1000
     adev_tol: float = 0.9
     ddev_tol: float = 0.0
     early_exit: bool = True
@@ -310,7 +343,7 @@ class NaiveStateBase:
     # internals
     _cache: ScreenCache = field(default_factory=ScreenCache)
     _screen_version: int = 0
-    _group_ids: Any = None       # device (p,) int64
+    _group_cols: Any = None      # device (G, Q) int64, see group_cols
     _penalty_cols: Any = None    # device (p,)
 
     def __post_init__(self):
@@ -323,8 +356,9 @@ class NaiveStateBase:
             self.max_screen_size = G
         if self.max_active_size is None:
             self.max_active_size = G
-        gid = np.repeat(np.arange(G, dtype=np.int64), self.group_sizes)
-        self._group_ids = torch.as_tensor(gid, device=self.device)
+        self._group_cols = torch.as_tensor(
+            group_cols(np.asarray(self.groups), np.asarray(self.group_sizes),
+                       self.p), device=self.device)
         self._penalty_cols = torch.as_tensor(
             np.repeat(self.penalty, self.group_sizes).astype(self.dtype),
             device=self.device,
@@ -379,8 +413,7 @@ class NaiveStateBase:
         beta_padded = cache.pad_screen_values(self.screen_beta, self)
         ag = abs_grad_kernel(
             self.grad, cache.cols_padded, beta_padded, self._penalty_cols,
-            self._group_ids, (1.0 - self.alpha) * min(lmda, 1e30),
-            len(self.groups),
+            self._group_cols, (1.0 - self.alpha) * min(lmda, 1e30),
         )
         self.abs_grad = ag.cpu().numpy()
 

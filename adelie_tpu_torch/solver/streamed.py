@@ -33,6 +33,7 @@ from ..exceptions import MaxCDsError
 from ..utils import Stopwatch
 from .fused import ChunkCarry, gaussian_chunk_step
 from .gaussian import GaussianNaiveDriver
+from .state_core import group_sum
 
 __all__ = ["StreamedGaussianDriver", "kkt_finalize", "residual_stack"]
 
@@ -57,8 +58,8 @@ def _thresholds(lmdas, alpha, penalty_groups):
 
 
 def kkt_finalize(Gfull, X_means, rsums, lmdas, alpha, penalty_cols, betas,
-                 cols_padded, group_ids, penalty_groups, screen_mask,
-                 num_groups, intercept):
+                 cols_padded, group_cols, penalty_groups, screen_mask,
+                 intercept):
     """Per-lambda group norms and KKT verdicts from the streamed (p, C)
     gradient stack (reference update_abs_grad solver_base.hpp:21-110 and
     kkt :410-433, over a whole chunk).  ``lmdas`` is a host array.
@@ -72,9 +73,8 @@ def kkt_finalize(Gfull, X_means, rsums, lmdas, alpha, penalty_cols, betas,
     l2s = torch.as_tensor((1.0 - alpha) * np.minimum(lmdas, 1e30),
                           dtype=G.dtype, device=G.device)
     gadj = G - l2s[None, :] * (penalty_cols[:, None] * Bcols)
-    sq = torch.zeros((num_groups, C), dtype=G.dtype, device=G.device)
-    sq.index_add_(0, group_ids, gadj * gadj)
-    abs_grad_all = torch.sqrt(torch.clamp(sq, min=0.0))
+    abs_grad_all = torch.sqrt(torch.clamp(group_sum(gadj * gadj, group_cols),
+                                          min=0.0))
     viol = abs_grad_all > _thresholds(lmdas, alpha, penalty_groups)
     kkts = ~torch.any(viol & ~screen_mask[:, None], dim=0)
     return abs_grad_all, kkts, G
@@ -174,9 +174,8 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
         U, rsums = residual_stack(resid0, cache.Xs, betas, beta0, s.weights)
         abs_grad_all, kkts, Gstack = kkt_finalize(
             s.X.mul_many(U), s.X_means, rsums, lm, s.alpha,
-            s._penalty_cols, betas, cache.cols_padded, s._group_ids,
-            self._penalty_groups_dev, s.screen_mask_dev(), len(s.groups),
-            s.intercept,
+            s._penalty_cols, betas, cache.cols_padded, s._group_cols,
+            self._penalty_groups_dev, s.screen_mask_dev(), s.intercept,
         )
         kkts_h = kkts.cpu().numpy()
         s.benchmark["kkt"].append(sw_k.elapsed())

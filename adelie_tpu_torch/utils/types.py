@@ -5,7 +5,7 @@ adelie_core/util/types.hpp), so a typo'd ``screen_rule`` fails at
 
 from __future__ import annotations
 
-__all__ = ["Option", "read_mode", "screen_rule"]
+__all__ = ["Option", "bcd_solver", "newton_method", "read_mode", "screen_rule"]
 
 
 class Option:
@@ -48,6 +48,16 @@ class Option:
 
 # --- solver knobs (reference util/types.hpp screen_rule_type) ---
 screen_rule = Option("screen_rule", ("strong", "pivot"))
+
+# --- block-update solvers (reference util/types.hpp, bcd.py:40-49) ---
+newton_method = Option(
+    "method", ("newton", "newton_abs", "newton_brent", "brent")
+)
+bcd_solver = Option(
+    "solver",
+    ("newton", "newton_abs", "newton_brent", "brent",
+     "ista", "fista", "fista_adares"),
+)
 
 # --- SNP IO read mode (reference io/io_snp_base.hpp read_mode_type) ---
 read_mode = Option("read_mode", ("file", "mmap"), aliases={"auto": "mmap"})

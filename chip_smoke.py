@@ -23,10 +23,25 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
    global memory, at S = 16384 in float64 and S = 32768 and 65536 in
    float32; the time per update beside the kernel's floor (the same
    kernel on a list whose every delta is 0);
+4b. K6 ``pin_group_solve`` (the whole pin solve of a screen holding groups
+    of size > 1) against its twin on the CPU: float32 and float64, S in
+    {64, 1024, 4096} (and 16,384 in float64, grad and beta in global
+    memory), qmax in {2, 4, 8, 32}, groups of mixed sizes (one of
+    size 1), a rank-deficient block and a zero penalty, from a cold start
+    (alpha 1) and a warm one (alpha 0.5): the same active flags and beta
+    within 1e-10 (float64) or 1e-4 of max |beta| (float32), and whether
+    the results are bit-equal; the time per update beside the chain's
+    floor (every update 0);
 5. the headline fit: ``grpnet(X, glm.gaussian(y))`` on "cuda" at
    n = 40,000, p = 2,000, 100 lambdas, float32 (bench.py's problem), with a
    per-lambda KKT check in numpy float64, and one more fit under
    ``torch.profiler`` (K1's device time and the idle share);
+5b. the grouped headline: phase 5's problem in 500 groups of 4 (K6 for
+    every pin solve but the first dry fit's, whose screen holds no group):
+    a warm-up, five timed fits (median wall; the first two bit-equal),
+    K6's launches, the Newton iterations' histogram (the share of root
+    finds that ran ``newton_max_iters``), a group KKT check per lambda in
+    float64, peak memory, one more fit under ``torch.profiler``;
 6. the big-S fit, whose screen set passes 1024, so K2 carries it: a
    warm-up fit whose every K2 solve is held bit-equal to the twin on the
    CPU on copies of its inputs, a timed fit (one K2 launch per pin solve
@@ -34,6 +49,8 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
 7. a float64 fit on "cuda" and on "cpu", and (7b) one whose screen passes
    1024, so K2 on the card meets its twin on the CPU, with every K2 solve
    of the card's fit replayed on the CPU twin;
+   (7c) a float64 fit of ``data.dense(2000, 300, 60)`` (groups of
+   unequal sizes) on "cuda" and on "cpu": K6 against its twin in a path;
 8. K3 ``snp_mul`` and K4 ``snp_mul_no_na`` against their twins: float
    checks at (p, n) = (300, 257), (513, 1,000), (513, 4,091) and
    (20,000, 50,000), whose rows of nb = ceil(n / 4) bytes start at every
@@ -51,6 +68,8 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
 10. the phased-ancestry fit: n = 50,000, 10,000 SNPs x 3 ancestries,
     ``groups=None``, 50 lambdas, float32, the same KKT check and profile;
     then K4's times as K3's;
+    (10b) the same panel grouped one SNP a group (its three ancestry
+    columns), K4 and K6, with a group KKT check and a profiled fit;
 11. a ``.snpdat`` file written and read by ``adelie_tpu_torch.io``, fitted
     in float64 on "cuda" and on "cpu";
 12. K5 ``snp_mul_many`` against its twin: float checks at fifteen
@@ -79,10 +98,12 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     more.
 
 Each main path has its launch counts: the counters are zeroed just before
-phase 5's timed fit and read just after it (K1), zeroed before phase 6's
-timed fit and read after it (K2), zeroed before phase 9 and read after it (K3), zeroed before phase 10 and read
-after it (K4), and zeroed before phase 14's timed fit and read after it
-(K5, with no K3).  Every kernel must have run on its path.  Any failed
+phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
+first timed fit and read after it (K6), zeroed before phase 6's timed fit
+and read after it (K2), zeroed before phase 9 and read after it (K3),
+zeroed before phase 10 and read after it (K4; and before and after 10b's
+timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
+after it (K5, with no K3).  Every kernel must have run on its path.  Any failed
 phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
 one CUDA device; exits 1 without one.
@@ -438,6 +459,209 @@ def k2_replay(what, calls):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4b: K6 against its twin                                                #
+# --------------------------------------------------------------------------- #
+
+
+def k6_problem(S, qmax, dtype, seed, case, n=None):
+    """A grouped pin problem for K6: groups of mixed sizes 1 .. qmax (one
+    of size 1 and one of size qmax among them) filling S - qmax positions,
+    A = X^T X / n with n = 2 S unless given, one block rank-deficient (a column repeated
+    in its group: a zero eigenvalue), one group with penalty 0, eight
+    invalid slots after the valid ones, the blocks' eigendecomposition by
+    the port's ``screen_eigh``; lambda 0.3 of the largest group norm of the
+    gradient.  ``case``: "cold" (alpha 1, beta 0, only the unpenalized
+    group active); "warm" (alpha 0.5, a fifth of the groups given beta and
+    active, the gradient moved to match); "floor" (lambda 2 lambda_max,
+    beta 0, nothing active: every update is 0 and moves nothing, the
+    chain's per-update floor).  Returns the wrapper's arguments."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver.pin import screen_eigh
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < S - 2 * qmax:
+        sizes.append(int(rng.integers(1, qmax + 1)))
+    sizes += [1, qmax]
+    sizes = np.asarray(sizes)
+    begins = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    G = len(sizes)
+    n = n or 2 * S
+    X = rng.standard_normal((n, S))
+    g_def = int(np.flatnonzero(sizes >= 2)[0])
+    b = begins[g_def]
+    X[:, b + sizes[g_def] - 1] = X[:, b]          # a zero eigenvalue
+    X[:, int(sizes.sum()):] = 0.0                 # positions past the groups
+    y = X[:, :40] @ rng.standard_normal(40) + rng.standard_normal(n)
+    dev = dict(device=DEV)
+    Xd = torch.as_tensor(X, **dev)
+    A64 = Xd.T @ Xd / n
+    g = Xd.T @ torch.as_tensor(y, **dev) / n
+    del Xd
+    pen = np.sqrt(sizes).astype(float)
+    g_zero = G // 2
+    pen[g_zero] = 0.0
+    alpha = 0.5 if case == "warm" else 1.0
+    beta0 = np.zeros(S)
+    act0 = np.zeros(G, bool)
+    if case == "cold":
+        act0[g_zero] = True
+    if case == "warm":
+        act0 = rng.random(G) < 0.2
+        for i in np.flatnonzero(act0):
+            beta0[begins[i]:begins[i] + sizes[i]] = \
+                0.05 * rng.standard_normal(sizes[i])
+        g = g - A64 @ torch.as_tensor(beta0, **dev)
+    gh = g.cpu().numpy()
+    norms = np.asarray([np.linalg.norm(gh[b:b + q])
+                        for b, q in zip(begins, sizes)])
+    lmda_max = float(np.max(norms[pen > 0] / (alpha * pen[pen > 0])))
+    lmda = (2.0 if case == "floor" else 0.3) * lmda_max
+    pad = 8
+    slot_begin = torch.as_tensor(np.concatenate([begins, np.zeros(pad, int)]),
+                                 dtype=torch.int64, **dev)
+    slot_size = torch.as_tensor(np.concatenate([sizes, np.zeros(pad, int)]),
+                                dtype=torch.int32, **dev)
+    A = A64.to(dtype).contiguous()
+    ev, V = screen_eigh(A, slot_begin, slot_size, qmax)
+    if case == "floor":
+        act0[:] = False
+    pen_t = torch.as_tensor(np.concatenate([pen, np.ones(pad)]), dtype=dtype,
+                            **dev)
+    act_t = torch.as_tensor(np.concatenate([act0, np.zeros(pad, bool)]),
+                            **dev)
+    tol = 1e-7 if dtype == torch.float32 else 1e-12
+    return (A, g.to(dtype).contiguous(),
+            torch.as_tensor(beta0, dtype=dtype, **dev), slot_begin, slot_size,
+            ev.contiguous(), V.contiguous(), pen_t, act_t, lmda, alpha, tol,
+            1e-12, 1e-12, 1000, 100000, 0.0)
+
+
+def k6_case(S, qmax, dtype, seed, case, reps=3, n=None):
+    """K6 against its twin (on the CPU, on copies of the same inputs):
+    the same active flags and beta within 1e-10 (float64) or 1e-4 of
+    max |beta| (float32), a converged solve; whether beta, grad and
+    (rsq, iters, done) are also bit-equal.  Returns the numbers of the
+    case: ms a solve, us an update, the twin's ms, the moved groups' rows
+    (for the bound) and the Newton counts."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver import pin_group_kernels as pg
+
+    what = f"K6 S={S} qmax={qmax} {dtype} {case}"
+    args = k6_problem(S, qmax, dtype, seed, case, n)
+    ms = cuda_ms(lambda: pg.pin_group_solve(*args), reps=reps)
+    b_k, g_k, a_k, info_k = pg.pin_group_solve(*args)
+    torch.cuda.synchronize()
+    cpu_args = [x.cpu() if torch.is_tensor(x) else x for x in args]
+    moved = set()
+    inner = pg._group_sweep
+
+    def counted(carry, c, listed):
+        before = carry[0].copy()
+        out = inner(carry, c, listed)
+        for i in listed:
+            b, q = int(c["begin"][i]), int(c["size"][i])
+            if not np.array_equal(before[b:b + q], out[0][b:b + q]):
+                moved.add(int(i))
+        return out
+
+    pg._group_sweep = counted
+    try:
+        t0 = time.perf_counter()
+        b_t, g_t, a_t, info_t = pg.pin_group_solve_ref(*cpu_args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pg._group_sweep = inner
+    info_k, info_t = info_k.tolist(), info_t.tolist()
+    if info_k[2] != 1.0:
+        fail(f"{what}: the solve did not converge (info {info_k[:3]})")
+    if not torch.equal(a_k.cpu(), a_t):
+        fail(f"{what}: active flags differ from the twin's")
+    err = float((b_k.cpu().double() - b_t.double()).abs().max())
+    scale = float(b_t.double().abs().max())
+    bar = 1e-10 if dtype == torch.float64 else 1e-4 * max(scale, 1e-30)
+    if not err <= bar:
+        fail(f"{what}: max |beta - twin| {err:.3e} past the bar {bar:.1e}")
+    bits = (same_bits(b_k.cpu(), b_t) and same_bits(g_k.cpu(), g_t)
+            and info_k == info_t)
+    sizes = args[4].cpu().numpy()
+    rows = int(sum(sizes[i] for i in moved))
+    updates = max(int(info_k[3]), 1)
+    return dict(S=S, qmax=qmax, dtype=str(dtype), case=case, ms=ms,
+                plain_ms=plain_ms, max_abs_err=err, bit_equal=bits,
+                iters=int(info_k[1]), updates=int(info_k[3]),
+                us_per_update=ms * 1e3 / updates, newton=info_k[4:6],
+                hist=info_k[6:], moved_groups=len(moved), rows=rows,
+                n_active=int(a_k.sum()), itemsize=dtype.itemsize,
+                G=int(sizes.shape[0]))
+
+
+def k6_bound(r):
+    """K6's bound for a case: the rows of the moved groups and V read once,
+    beta, grad and the slot buffers in and out, over HBM; an AXPY of S
+    for each moved coordinate's row, once a moving group (a floor: the
+    chain, not the bytes, sets K6's time)."""
+    S, G, q, it = r["S"], r["G"], r["qmax"], r["itemsize"]
+    nbytes = (r["rows"] * S * it + G * q * q * it + G * q * it
+              + 4 * S * it + G * 22)
+    return bound(nbytes, 2 * S * r["rows"])
+
+
+def group_kkt_check(what, G, B, lmdas, groups, sizes, penalty, alpha):
+    """The group KKT conditions per lambda, in float64: ``G`` (L, p) the
+    gradients X^T W r of each lambda's fit (r with its intercept), ``B``
+    (L, p) its coefficients.  Over zero groups ||G_g|| - lambda alpha p_g,
+    over nonzero groups ||G_g - lambda p_g (alpha b_g / ||b_g|| +
+    (1 - alpha) b_g)||, both <= 1e-2 lambda.  Returns the worst / lambda."""
+    import numpy as np
+    import torch
+
+    dev = G.device
+    p = G.shape[1]
+    Q = int(sizes.max())
+    lane = np.arange(Q)
+    cols = np.where(lane[None, :] < sizes[:, None], groups[:, None] + lane,
+                    p)
+    cols = torch.as_tensor(cols, device=dev)
+    pad = torch.zeros((G.shape[0], 1), dtype=torch.float64, device=dev)
+    Gg = torch.cat([G, pad], 1)[:, cols]                  # (L, ng, Q)
+    Bg = torch.cat([B, pad], 1)[:, cols]
+    lm = torch.as_tensor(np.asarray(lmdas, np.float64), device=dev)
+    pen = torch.as_tensor(np.asarray(penalty, np.float64), device=dev)
+    bn = Bg.norm(dim=2)
+    nz = bn > 0
+    v0 = torch.where(nz, 0.0, Gg.norm(dim=2) - lm[:, None] * alpha
+                     * pen[None, :]).amax(dim=1)
+    sub = lm[:, None, None] * pen[None, :, None] * (
+        alpha * Bg / torch.where(nz, bn, 1.0)[:, :, None]
+        + (1 - alpha) * Bg)
+    v1 = torch.where(nz, (Gg - sub).norm(dim=2), 0.0).amax(dim=1)
+    worst = float((torch.maximum(v0, v1) / lm).max())
+    if not worst <= 1e-2:
+        fail(f"{what}: group KKT violation {worst:.3e} lambda")
+    return worst
+
+
+def dense_grad(X, y, state):
+    """(G, B) of a dense fit with weights 1/n for ``group_kkt_check``: the
+    gradients X^T (y - X b - b0) / n and the coefficients, (L, p) float64
+    on the card."""
+    import numpy as np
+    import torch
+
+    Xd = torch.as_tensor(np.asarray(X), device=DEV).double()
+    B = torch.as_tensor(state.betas.toarray(), device=DEV).double()
+    b0 = torch.as_tensor(np.asarray(state.intercepts, np.float64), device=DEV)
+    y64 = torch.as_tensor(np.asarray(y, np.float64), device=DEV)
+    R = y64[:, None] - Xd @ B.T - b0[None, :]
+    return (Xd.T @ R).T / Xd.shape[0], B
+
+
+# --------------------------------------------------------------------------- #
 # phases 5 to 7: the main path                                                 #
 # --------------------------------------------------------------------------- #
 
@@ -738,6 +962,23 @@ def snp_kkt_check(what, Xm, y, state, block=2048):
     decoded by ``gather`` (never K3).  Over zero coefficients
     max |g_j| - lambda, over nonzeros |g_j - lambda sign(beta_j)|, both
     <= 1e-2 lambda."""
+    import torch
+
+    G, Bfull, lm = snp_grad(Xm, y, state, block)
+    nz = Bfull != 0
+    g = G.T                                                         # (L, p)
+    v0 = torch.where(nz, 0.0, g.abs()).amax(dim=1) - lm
+    v1 = torch.where(nz, (g - lm[:, None] * Bfull.sign()).abs(),
+                     0.0).amax(dim=1)
+    worst = float((torch.maximum(v0, v1) / lm).max())
+    if not worst <= 1e-2:
+        fail(f"{what}: KKT violation {worst:.3e} lambda")
+    return worst
+
+
+def snp_grad(Xm, y, state, block=2048):
+    """``snp_kkt_check``'s gradients G (p, L) = X^T W (y - X beta -
+    beta_0), coefficients (L, p) and lambdas, float64 on the card."""
     import numpy as np
     import torch
 
@@ -757,15 +998,7 @@ def snp_kkt_check(what, Xm, y, state, block=2048):
     lm = torch.as_tensor(np.asarray(state.lmdas), device=DEV)
     Bfull = torch.zeros((len(lm), p), dtype=torch.float64, device=DEV)
     Bfull[:, torch.as_tensor(act, device=DEV)] = Ba
-    nz = Bfull != 0
-    g = G.T                                                         # (L, p)
-    v0 = torch.where(nz, 0.0, g.abs()).amax(dim=1) - lm
-    v1 = torch.where(nz, (g - lm[:, None] * Bfull.sign()).abs(),
-                     0.0).amax(dim=1)
-    worst = float((torch.maximum(v0, v1) / lm).max())
-    if not worst <= 1e-2:
-        fail(f"{what}: KKT violation {worst:.3e} lambda")
-    return worst
+    return G, Bfull, lm
 
 
 def profile_fit(ad, Xm, y, **kw):
@@ -1227,6 +1460,43 @@ def main():
         r.pop("args", None), r.pop("out", None)
     torch.cuda.empty_cache()
 
+    # 4b. K6 against its twin: the whole grouped solve
+    from adelie_tpu_torch.solver import pin_group_kernels as pg
+
+    k6 = []
+    for dtype in (torch.float32, torch.float64):
+        for S, qmax in ((64, 2), (64, 8), (1024, 4), (1024, 32), (4096, 4),
+                        (4096, 8)):
+            for case in ("cold", "warm"):
+                k6.append(k6_case(S, qmax, dtype, seed=S + qmax, case=case))
+    # past about S = 13,000 in float64, grad, beta and the lists leave
+    # shared memory for global memory (n = 4,096 samples: a Gram of rank
+    # 4,096, many zero eigenvalues)
+    k6.append(k6_case(16384, 4, torch.float64, seed=16388, case="cold",
+                      reps=1, n=4096))
+    for r in k6:
+        phase("K6", f"S={r['S']} qmax={r['qmax']} {r['dtype']} {r['case']}: "
+              f"active flags equal to the twin's, max |beta - twin| "
+              f"{r['max_abs_err']:.2e}"
+              + (" (beta, grad and info bit-equal)" if r["bit_equal"]
+                 else " (not bit-equal)")
+              + f"; iters {r['iters']}, updates {r['updates']} (moved "
+              f"groups {r['moved_groups']}, active {r['n_active']}), Newton "
+              f"finds {int(r['newton'][0])} ({int(r['hist'][-1])} ran "
+              f"newton_max_iters, {int(r['newton'][1])} steps); kernel "
+              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update; "
+              f"twin {r['plain_ms']:.1f} ms | {card}")
+    n_bits = sum(r["bit_equal"] for r in k6)
+    phase("K6", f"{n_bits} of {len(k6)} cases bit-equal to the twin")
+    for S in (1024, 4096):
+        r = k6_case(S, 4, torch.float32, seed=S + 5, case="floor")
+        phase("K6", f"floor S={S} qmax=4 float32: {r['updates']} updates, "
+              f"{r['moved_groups']} moving (the unpenalized group's ridge "
+              f"update), the rest 0 (lambda above lambda_max); "
+              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update: "
+              f"the chain's rotation, norm test and barrier | {card}")
+    torch.cuda.empty_cache()
+
     # 5. the headline fit (warm-up, then the timed main-path fit)
     X, y = headline_problem(40000, 2000, 60, seed=0)
     Xm = ad.matrix.dense(X, device="cuda")
@@ -1258,7 +1528,76 @@ def main():
         k1_line = (f"K1 device time {k1_dev:.1f} ms in {k1_n} launches, "
                    f"{k1_dev / k1_n:.3f} ms a launch")
     phase("headline", f"{profile_line(prof5)}; {k1_line} | {card}")
-    del Xm
+
+    # 5b. the grouped headline: phase 5's problem in 500 groups of 4, K6
+    # for every pin solve (warm-up, five timed fits, one profiled)
+    groups5 = np.arange(0, 2000, 4)
+    kw5g = dict(kw, groups=groups5)
+    warm5g, _ = fit(ad, Xm, y, **kw5g)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(tk.launches, pg.launches)
+    pg.reset_newton()
+    wall, st5g = fit(ad, Xm, y, **kw5g)
+    counts5g = {**tk.launches, **pg.launches}
+    newton5g = {k: (list(v) if isinstance(v, list) else v)
+                for k, v in pg.newton.items()}
+    peak5g = torch.cuda.max_memory_allocated() / 2**30
+    walls5g = [wall]
+    for i in range(4):
+        wall, st = fit(ad, Xm, y, **kw5g)
+        walls5g.append(wall)
+        if i == 0:
+            st5g_b = st
+    if st5g.error != "" or len(st5g.lmdas) != 100:
+        fail(f"grouped headline: error {st5g.error!r}, {len(st5g.lmdas)} "
+             "lambdas")
+    # a screen with no group (the first dry fit's) has qmax 1 and runs K1,
+    # as the JAX package's q = 1 path; every other solve is K6's
+    caps5g = st5g.benchmark["pin_caps"]
+    if (counts5g["pin_group_solve"] <= 0 or counts5g["pin_lasso_solve_rows"]
+            or counts5g["pin_group_solve"] + counts5g["pin_lasso_solve"]
+            != len(caps5g)):
+        fail(f"grouped headline: launches {counts5g} for {len(caps5g)} pin "
+             "solves: one K6 or K1 launch a solve, K6 at least once")
+    same5g = (np.array_equal(st5g.lmdas, st5g_b.lmdas)
+              and np.array_equal(st5g.betas.toarray(),
+                                 st5g_b.betas.toarray()))
+    if not same5g:
+        fail("grouped headline: two timed fits differ (beta or lambdas)")
+    G5, B5 = dense_grad(X, y, st5g)
+    kkt5g = group_kkt_check("grouped headline", G5, B5, st5g.lmdas, groups5,
+                            np.full(500, 4), np.full(500, 2.0), 1.0)
+    del G5, B5
+    phase("headline-grouped", f"n=40000 p=2000 f32 500 groups of 4, 100 "
+          f"lambdas: wall median {np.median(walls5g):.3f} s of five "
+          f"({min(walls5g):.3f}-{max(walls5g):.3f}; warm-up {warm5g:.3f} s),"
+          f" two timed fits bit-equal, peak screen "
+          f"{int(max(st5g.screen_sizes))} groups, pin solves' S in "
+          f"[{min(caps5g)}, {max(caps5g)}], launches {counts5g}, worst "
+          f"group KKT {kkt5g:.2e} lambda (float64), peak memory "
+          f"{peak5g:.2f} GiB | {card}")
+    h = newton5g["hist"]
+    finds = max(newton5g["solves"], 1)
+    phase("headline-grouped", f"Newton: {newton5g['updates']} group "
+          f"updates, {newton5g['solves']} root finds, {newton5g['iters']} "
+          f"Newton steps ({newton5g['iters'] / finds:.1f} a find); steps a "
+          f"find: 0: {h[0]}, " + ", ".join(
+              f"[{1 << (b - 1)}, {1 << b}): {h[b]}" for b in range(1, 11))
+          + f", newton_max_iters: {h[11]} ({h[11] / finds:.3f} of the "
+          f"finds) | {card}")
+    prof5g = profile_fit(ad, Xm, y, **kw5g)
+    k6_prof = [] if prof5g is None else [
+        v for name, v in prof5g[2].items() if "pin_group_solve_kernel" in name]
+    k6_line = "K6 device time not measured"
+    if k6_prof:
+        k6_n, k6_dev = map(sum, zip(*k6_prof))
+        k6_line = (f"K6 device time {k6_dev:.1f} ms in {k6_n} launches, "
+                   f"{k6_dev / k6_n:.3f} ms a launch, "
+                   f"{k6_dev * 1e3 / max(newton5g['updates'], 1):.3f} us a "
+                   "group update")
+    phase("headline-grouped", f"{profile_line(prof5g)}; {k6_line} | {card}")
+    # a state holds its screen block on the card
+    del Xm, st, st5g, st5g_b
 
     # 6. a screen set past 1024: K2 carries the pin solves (warm-up, the
     # timed main-path fit, one profiled fit)
@@ -1360,6 +1699,30 @@ def main():
             fail(f"the card's big-S fit at tol {tol} differs from the CPU "
                  "path")
 
+    # 7c. groups of unequal sizes, float64: K6 on the card, its twin on
+    # the CPU
+    d7 = ad.data.dense(2000, 300, 60, seed=17)
+    kw7c = dict(groups=d7["groups"], penalty=d7["penalty"])
+    zero_counts(pg.launches)
+    s_gpu = ad.grpnet(d7["X"], d7["glm"], device="cuda", **kw7c)
+    k6_7c = pg.launches["pin_group_solve"]
+    t0 = time.perf_counter()
+    s_cpu = ad.grpnet(d7["X"], d7["glm"], device="cpu", **kw7c)
+    cpu7c = time.perf_counter() - t0
+    if s_gpu.error or s_cpu.error or len(s_gpu.lmdas) != len(s_cpu.lmdas):
+        fail(f"grouped cuda vs cpu: errors {s_gpu.error!r} {s_cpu.error!r}, "
+             f"{len(s_gpu.lmdas)} vs {len(s_cpu.lmdas)} lambdas")
+    lm_err = float(np.max(np.abs(s_gpu.lmdas / s_cpu.lmdas - 1)))
+    b_err = float(np.max(np.abs(s_gpu.betas.toarray()
+                                - s_cpu.betas.toarray())))
+    phase("cuda-vs-cpu", f"data.dense(2000, 300, 60) f64, group sizes "
+          f"{int(d7['group_sizes'].min())}-{int(d7['group_sizes'].max())}: "
+          f"{len(s_gpu.lmdas)} lambdas, K6 launches {k6_7c}, max lambda rel "
+          f"diff {lm_err:.1e}, max beta diff {b_err:.3e} (the CPU twin's fit "
+          f"{cpu7c:.1f} s)")
+    if k6_7c <= 0 or lm_err > 1e-10 or b_err > 1e-6:
+        fail("the card's grouped fit differs from the CPU path")
+
     # 8. K3 and K4 against their twins
     from adelie_tpu_torch.matrix import snp_kernels as sk
 
@@ -1454,7 +1817,36 @@ def main():
           f"{timing_line(snp_time['snp_mul_no_na'], 'snp_mul_no_na')}; "
           f"launches x kernel ms {k4_path_ms:.1f} ms, "
           f"{k4_path_ms / (wall10 * 1e3):.2f} of the path's wall | {card}")
-    del Xm10, io10
+
+    # 10b. the same panel grouped one SNP a group: its three ancestry
+    # columns s A + a in one group, so K4 and K6 carry the fit
+    groups10 = PHASED_A * np.arange(PHASED_S)
+    kw10g = dict(kw9, groups=groups10)
+    warm10g, _ = fit(ad, Xm10, y10, **kw10g)
+    zero_counts(tk.launches, sk.launches, pg.launches)
+    wall10g, st10g = fit(ad, Xm10, y10, **kw10g)
+    counts10g = {**tk.launches, **sk.launches, **pg.launches}
+    if st10g.error != "":
+        fail(f"grouped phased fit: error {st10g.error!r}")
+    if counts10g["snp_mul_no_na"] <= 0 or counts10g["pin_group_solve"] <= 0:
+        fail(f"grouped phased fit: launches {counts10g}; K4 and K6 must "
+             "carry it")
+    G10, B10, lm10 = snp_grad(Xm10, y10, st10g)
+    kkt10g = group_kkt_check("grouped phased fit", G10.T.contiguous(), B10,
+                             lm10.cpu().numpy(), groups10,
+                             np.full(PHASED_S, PHASED_A),
+                             np.full(PHASED_S, np.sqrt(PHASED_A)), 1.0)
+    del G10, B10
+    phase("phased-grouped", f"n={PHASED_N} {PHASED_S} groups of "
+          f"{PHASED_A} (p={p10}) f32 {len(st10g.lmdas)} lambdas: wall "
+          f"{wall10g:.3f} s (warm-up {warm10g:.3f} s), peak screen "
+          f"{int(max(st10g.screen_sizes))} groups, pin solves' S in "
+          f"[{min(st10g.benchmark['pin_caps'])}, "
+          f"{max(st10g.benchmark['pin_caps'])}], worst group KKT "
+          f"{kkt10g:.2e} lambda (float64), launches {counts10g} | {card}")
+    prof10g = profile_fit(ad, Xm10, y10, **kw10g)
+    phase("phased-grouped", f"{profile_line(prof10g)} | {card}")
+    del Xm10, io10, st10g
     torch.cuda.empty_cache()
 
     # 11. a .snpdat file, fitted on the card and on the CPU, float64
@@ -1683,6 +2075,9 @@ def main():
     k1_bound, k2_bound = (
         bound(r["rows"] * S * 4 + 4 * S * 4 + S * 22 + 12, 2 * S * r["moved"])
         for r, S in ((k1_main, 1024), (k2_main, 2048)))
+    k6_main = next(r for r in k6 if r["S"] == 1024 and r["qmax"] == 4
+                   and r["case"] == "cold" and r["dtype"] == "torch.float32")
+    k6_b = k6_bound(k6_main)
     kernels = {"kernels": [
         {"name": "pin_lasso_solve", "route": "cuda",
          "source": "adelie_tpu_torch/csrc/pin_kernels.cu",
@@ -1700,6 +2095,14 @@ def main():
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": None},
+        {"name": "pin_group_solve", "route": "cuda",
+         "source": "adelie_tpu_torch/csrc/pin_group_kernels.cu",
+         "replaces": "adelie_tpu/solver/pin.py:232 (no TPU kernel: the XLA "
+                     "loop of _sweep with adelie_tpu/bcd.py:269)",
+         "launches": counts5g["pin_group_solve"],
+         "max_abs_err": max(r["max_abs_err"] for r in k6),
+         "ms": k6_main["ms"], "plain_ms": k6_main["plain_ms"],
+         "bound_ms": k6_b[0], "bound_by": k6_b[1], "library_ms": None},
         *({"name": name, "route": "cuda",
            "source": "adelie_tpu_torch/csrc/snp_kernels.cu",
            "replaces": replaces, "launches": launches,

@@ -62,21 +62,26 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
 def test_nvcc_command_names_both_kernel_sources():
     compiles, _ = _build.nvcc_commands("/x/nvcc", Path("/tmp/out.so"))
     names = sorted(Path(c[-1]).name for c in compiles)
-    assert names == ["pin_kernels.cu", "snp_kernels.cu"]
-    # snp_kernels.cu holds K3, K4 and K5
+    assert names == ["pin_group_kernels.cu", "pin_kernels.cu",
+                     "snp_kernels.cu"]
+    # snp_kernels.cu holds K3, K4 and K5; pin_group_kernels.cu K6
     src = (_build.CSRC_DIR / "snp_kernels.cu").read_text()
     assert all(f"adelie_{k}_f32(" in src
                for k in ("snp_mul", "snp_mul_no_na", "snp_mul_many"))
+    src = (_build.CSRC_DIR / "pin_group_kernels.cu").read_text()
+    assert all(f"adelie_pin_group_solve_{s}(" in src for s in ("f32", "f64"))
     assert all("-fmad=false" in c and "-c" in c for c in compiles)
 
 
 def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):
-    """Both kernel sources include csrc/async_copy.cuh (the mbarrier and
-    bulk-copy helpers), so an edit of it must name a new library: a stale
-    one would otherwise be loaded."""
+    """The K1/K2 and K3-K5 sources include csrc/async_copy.cuh (the
+    mbarrier and bulk-copy helpers), so an edit of it must name a new
+    library: a stale one would otherwise be loaded."""
     header = _build.CSRC_DIR / "async_copy.cuh"
     assert _build.HEADERS == (header,)
-    for src in _build.SOURCES:
+    for name in ("pin_kernels.cu", "snp_kernels.cu"):
+        src = _build.CSRC_DIR / name
+        assert src in _build.SOURCES
         assert '#include "async_copy.cuh"' in src.read_text()
     before = _build.library_path()
     edited = tmp_path / header.name
@@ -203,10 +208,18 @@ def test_matmul_precision_maps_to_tf32(name, tf32):
 
 
 def test_unported_inputs_raise():
-    X = np.random.default_rng(0).standard_normal((20, 6))
-    y = np.ones(20)
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        ta.grpnet(X, ta.glm.gaussian(y), groups=[0, 2, 4], device="cpu")
+    """Groups of size > 1 are ported: ``groups=[0, 2, 4]`` fits as the JAX
+    package does (the bars of test_torch_grpnet.py).  Other GLMs raise."""
+    import adelie_tpu as ja
+    from test_torch_grpnet import _assert_same_path
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((20, 6))
+    y = X[:, :3] @ np.array([1.0, -0.5, 0.3]) + 0.1 * rng.standard_normal(20)
+    kw = dict(groups=[0, 2, 4], lmda_path_size=10)
+    js = ja.grpnet(X, ja.glm.gaussian(y), **kw)
+    ts = ta.grpnet(X, ta.glm.gaussian(y), device="cpu", **kw)
+    _assert_same_path(js, ts)
     glm = ta.glm.gaussian(y)
     glm.name = "binomial"
     with pytest.raises(NotImplementedError, match="queue 5"):
@@ -232,7 +245,8 @@ def test_dense_matrix_products_match_numpy():
 
 def test_grpnet_accepts_the_jax_keywords():
     """``n_threads``, ``irls_*`` and ``newton_*`` are accepted and change
-    nothing yet; ``check_state=True`` is not ported and raises."""
+    nothing here (GLMs are not ported, and groups of size 1 take no Newton
+    step); ``check_state=True`` is not ported and raises."""
     rng = np.random.default_rng(1)
     X = rng.standard_normal((30, 5))
     y = X[:, 0] + 0.1 * rng.standard_normal(30)

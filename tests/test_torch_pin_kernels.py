@@ -126,8 +126,8 @@ def test_k1_twin_matches_jax_pin_cov_solve_f64(S, n_invalid, lmda, alpha,
     t = torch.from_numpy
     beta, grad_n, act, rsq, iters, done = tpin.pin_cov_solve(
         t(A), t(grad), t(beta0), t(slot_begin), t(slot_size),
-        t(np.array(eigvals)), t(pen), t(act0), lmda, alpha, 1e-12, 100000,
-        0.25,
+        t(np.array(eigvals)), t(np.array(eigvecs)), t(pen), t(act0), lmda,
+        alpha, 1e-12, 1e-12, 1e-12, 1000, 100000, 0.25,
     )
     np.testing.assert_allclose(beta.numpy(), np.asarray(out_x[0]), atol=1e-10)
     np.testing.assert_allclose(grad_n.numpy(), np.asarray(out_x[1]),
@@ -267,8 +267,9 @@ def test_pin_cov_solve_past_1024_matches_jax_f64(dtype, case):
     )
     t = torch.from_numpy
     beta, _, act_t, rsq, iters, done = tpin.pin_cov_solve(
-        t(A), t(g), t(beta0), t(sb), t(ssz), t(ev), t(pen), t(act), 0.2,
-        1.0, 1e-12, 100000, 0.0,
+        t(A), t(g), t(beta0), t(sb), t(ssz), t(ev),
+        torch.ones((S_cap, 1, 1), dtype=t(A).dtype), t(pen), t(act), 0.2,
+        1.0, 1e-12, 1e-14, 1e-12, 1000, 100000, 0.0,
     )
     assert tk.launches == {"pin_lasso_solve": 0, "pin_lasso_solve_rows": 0}
     assert beta.dtype == t(A).dtype
