@@ -145,17 +145,37 @@ def _newton_step(buf1, v, l1, h, tiny):
 def _newton_phase(buf1, v, l1, h0, tol, max_iters):
     """Guarded Newton on phi from ``h0`` (newton.hpp newton_solver_base):
     phi is convex and decreasing on h >= 0, so Newton from the left
-    converges monotonically.  Returns (h, iters)."""
+    converges monotonically.  Returns (h, iters, steps run, cycled).
+
+    The walk's state is h alone, so in floating point it is eventually
+    periodic.  Brent's cycle detection watches for an h that repeats bit
+    for bit: a saved h is compared with each of the next ``power`` steps,
+    then replaced by the newest, ``power`` doubled.  A repeat at step k
+    with period p means every h of the cycle has failed ``tol``, so the
+    walk runs to ``max_iters``; ``(max_iters - k) mod p`` more steps end
+    on the h that walk ends on, and ``iters`` is ``max_iters`` as for the
+    full walk.  K6 exits its walks by the same rule."""
     dt = v.dtype.type
     tiny = _tiny(dt)
     h = dt(h0)
     fh, dfh = _newton_step(buf1, v, l1, h, tiny)
     it = 0
+    saved, since, power = h.tobytes(), 0, 1
     while np.abs(fh) > tol and it < max_iters:
         h = np.maximum(h - fh / dfh, dt(0.0))
         fh, dfh = _newton_step(buf1, v, l1, h, tiny)
         it += 1
-    return h, it
+        since += 1
+        if it < max_iters and h.tobytes() == saved:
+            run = it
+            for _ in range((max_iters - it) % since):
+                h = np.maximum(h - fh / dfh, dt(0.0))
+                fh, dfh = _newton_step(buf1, v, l1, h, tiny)
+                run += 1
+            return h, max_iters, run, True
+        if since == power:
+            saved, since, power = h.tobytes(), 0, 2 * power
+    return h, it, it, False
 
 
 def _newton_abs_init(buf1, v, l1, tol):
@@ -245,32 +265,36 @@ def _brent_root(buf1, v, l1, tol, max_iters):
 def block_update_np(L, v, l1, l2, tol=1e-12, max_iters=1000,
                     method="newton_abs"):
     """``newton_solver`` on numpy arrays ``L, v`` of one float dtype, with
-    scalars ``l1, l2, tol`` cast to it: returns ``(x, iters, general)``,
-    ``general`` False in the zero and ridge cases (``iters`` 0 there),
-    else True with ``iters`` the Newton (or Brent) steps."""
+    scalars ``l1, l2, tol`` cast to it: returns ``(x, iters, general, run,
+    cycled)``, ``general`` False in the zero and ridge cases (``iters`` and
+    ``run`` 0 there), else True with ``iters`` the Newton (or Brent) steps
+    of the full walk, ``run`` those taken and ``cycled`` whether the
+    Newton walk ended by ``_newton_phase``'s cycle rule."""
     dt = v.dtype.type
     l1, l2, tol = dt(l1), dt(l2), dt(tol)
     buf1 = L + l2
     if np.sqrt(lane_sum(v * v)) <= l1:
-        return np.zeros_like(v), 0, False
+        return np.zeros_like(v), 0, False, 0, False
     if l1 <= 0:
         x = np.where(v != 0, v / np.where(buf1 != 0, buf1, dt(1.0)), dt(0.0))
-        return x, 0, False
+        return x, 0, False, 0, False
+    cycled = False
     if method == "newton_abs":
-        h, iters = _newton_phase(buf1, v, l1,
-                                 _newton_abs_init(buf1, v, l1, tol), tol,
-                                 max_iters)
+        h, iters, run, cycled = _newton_phase(
+            buf1, v, l1, _newton_abs_init(buf1, v, l1, tol), tol, max_iters)
     elif method == "newton":
-        h, iters = _newton_phase(buf1, v, l1, dt(0.0), tol, max_iters)
+        h, iters, run, cycled = _newton_phase(buf1, v, l1, dt(0.0), tol,
+                                              max_iters)
     elif method == "newton_brent":
         h0, it0 = _brent_root(buf1, v, l1, tol, max_iters)
-        h, it1 = _newton_phase(buf1, v, l1, h0, tol, max_iters)
-        iters = it0 + it1
+        h, it1, run1, cycled = _newton_phase(buf1, v, l1, h0, tol, max_iters)
+        iters, run = it0 + it1, it0 + run1
     elif method == "brent":
         h, iters = _brent_root(buf1, v, l1, tol, max_iters)
+        run = iters
     else:
         raise ValueError(f"Unknown newton method: {method}")
-    return (h * v) / (buf1 * h + l1), iters, True
+    return (h * v) / (buf1 * h + l1), iters, True, run, cycled
 
 
 def newton_solver(L, v, l1, l2, tol=1e-12, max_iters=1000,
@@ -285,8 +309,8 @@ def newton_solver(L, v, l1, l2, tol=1e-12, max_iters=1000,
     """
     method = types.newton_method(method, param="method")
     dt = _dtype(v)
-    x, iters, _ = block_update_np(_np(L, dt), _np(v, dt), l1, l2, tol,
-                                  int(max_iters), method)
+    x, iters = block_update_np(_np(L, dt), _np(v, dt), l1, l2, tol,
+                               int(max_iters), method)[:2]
     device = v.device if isinstance(v, torch.Tensor) else "cpu"
     return torch.as_tensor(x, device=device), int(iters)
 
@@ -331,7 +355,7 @@ def objective(beta, *, quad, linear, l1, l2):
 def root(*, quad, linear, l1, l2=0.0, tol=1e-12, max_iters=1000):
     """Root ||x||_2 of the solved block update (reference bcd.py:264)."""
     dt, quad, linear = _problem(quad, linear)
-    x, _, _ = block_update_np(quad, linear, l1, l2, tol, int(max_iters))
+    x = block_update_np(quad, linear, l1, l2, tol, int(max_iters))[0]
     return float(np.sqrt(np.sum(x * x)))
 
 
@@ -380,6 +404,6 @@ def solve(*, quad, linear, l1, l2, tol: float = 1e-12, max_iters: int = 1000,
         x, iters = _ista(quad, linear, l1, l2, tol, int(max_iters),
                          solver != "ista", solver == "fista_adares")
     else:
-        x, iters, _ = block_update_np(quad, linear, l1, l2, tol,
-                                      int(max_iters), solver)
+        x, iters = block_update_np(quad, linear, l1, l2, tol,
+                                   int(max_iters), solver)[:2]
     return {"beta": np.asarray(x), "iters": int(iters)}

@@ -1,6 +1,7 @@
 // Asynchronous copies into shared memory on Hopper (sm_90a): mbarriers and
 // bulk copies (TMA), shared by the kernels of pin_kernels.cu (K2's row ring)
-// and snp_kernels.cu (K5's U^T ring).
+// and snp_kernels.cu (K5's U^T ring), and the per-thread cp.async of
+// pin_group_kernels.cu (K6's staged operands).
 //
 // A ring slot's mbarrier is initialised with one expected arrival; the
 // thread that fills the slot arrives with the byte count it expects
@@ -67,6 +68,21 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// one asynchronous copy of a 4- or 8-byte element from global to shared
+// memory, both aligned to its size; this thread's copies are complete at
+// its cp_async_wait_all, and visible to the block after a barrier
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp_async copies 4 or 8 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace

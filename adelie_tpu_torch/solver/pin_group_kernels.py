@@ -24,7 +24,10 @@ accumulates, over the solves that ``solver/pin.py`` reads, the group
 updates, the Newton root finds (updates that are neither 0 nor the ridge
 closed form), their Newton steps and a histogram of steps a find
 (``NEWTON_BINS``: 0, [1, 2), [2, 4), ..., [512, 1024), and
-``newton_max_iters`` or more); ``reset_newton()`` zeroes it.
+``newton_max_iters`` or more), all counted as the full walks take them;
+then the steps actually run (``steps_run``) and the finds that ended by
+the cycle rule of ``bcd._newton_phase`` (``cycle_exits``), which the
+kernel and the twin share.  ``reset_newton()`` zeroes it.
 """
 
 import numpy as np
@@ -37,8 +40,9 @@ from .pin_kernels import _check_cuda, _l1_l2, _route, _scalar_dtype, solve_loop
 # in its shared memory
 MAX_QMAX = 1024
 NEWTON_BINS = 12
-# info: rsq, iters, done, updates, Newton finds, Newton steps, histogram
-INFO_LEN = 6 + NEWTON_BINS
+# info: rsq, iters, done, updates, Newton finds, Newton steps, histogram,
+# Newton steps run, cycle exits
+INFO_LEN = 8 + NEWTON_BINS
 
 launches = {"pin_group_solve": 0}
 newton = {}
@@ -47,7 +51,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_newton():
-    newton.update(updates=0, solves=0, iters=0, hist=[0] * NEWTON_BINS)
+    newton.update(updates=0, solves=0, iters=0, hist=[0] * NEWTON_BINS,
+                  steps_run=0, cycle_exits=0)
 
 
 reset_newton()
@@ -60,6 +65,8 @@ def record_newton(info):
     newton["iters"] += int(info[5])
     newton["hist"] = [h + int(x) for h, x in
                       zip(newton["hist"], info[6:6 + NEWTON_BINS])]
+    newton["steps_run"] += int(info[6 + NEWTON_BINS])
+    newton["cycle_exits"] += int(info[7 + NEWTON_BINS])
 
 
 def newton_bin(iters, max_iters):
@@ -79,8 +86,8 @@ def pin_group_solve(A, grad, beta, slot_begin, slot_size, eigvals, eigvecs,
     ``eigvals`` (G, qmax) and ``eigvecs`` (G, qmax, qmax) with ``qmax`` a
     power of 2 up to ``MAX_QMAX`` (on the card).  Returns ``(beta, grad,
     is_active, info)``: ``info`` a float64 tensor of ``INFO_LEN`` holding
-    ``(rsq, iters, done, updates, Newton finds, Newton steps, histogram)``;
-    read it with one host copy.
+    ``(rsq, iters, done, updates, Newton finds, Newton steps, histogram,
+    Newton steps run, cycle exits)``; read it with one host copy.
     """
     if not _route(A, "pin_group_solve"):
         return pin_group_solve_ref(A, grad, beta, slot_begin, slot_size,
@@ -156,7 +163,7 @@ def pin_group_solve_ref(A, grad, beta, slot_begin, slot_size, eigvals,
     c = dict(A=A_h, begin=begin_h, size=size_h, lam=lam_h, V=V_h, pen=pen_h,
              l1=l1, l2=l2, dbeta_tol=dt(dbeta_tol), ntol=dt(newton_tol),
              nmax=int(newton_max_iters),
-             counts=np.zeros(3 + NEWTON_BINS, np.int64))
+             counts=np.zeros(5 + NEWTON_BINS, np.int64))
     carry = (beta.detach().cpu().numpy().copy(),
              grad.detach().cpu().numpy().copy(),
              is_active.detach().cpu().numpy().copy(), dt(rsq))
@@ -203,13 +210,15 @@ def _group_sweep(carry, c, listed):
             beta_t = beta_t + V[j] * beta_g[j]
             g_t = g_t + V[j] * grad_g[j]
         v_t = g_t + lam * beta_t
-        x_t, iters, general = block_update_np(
+        x_t, iters, general, run, cycled = block_update_np(
             lam, v_t, c["l1"] * pk, c["l2"] * pk, c["ntol"], c["nmax"])
         counts[0] += 1
         if general:
             counts[1] += 1
             counts[2] += iters
             counts[3 + newton_bin(iters, c["nmax"])] += 1
+            counts[3 + NEWTON_BINS] += run
+            counts[4 + NEWTON_BINS] += cycled
         d_t = x_t - beta_t
         # skip threshold: exact 0 for q = 1, dbeta_tol^2 q above
         thresh = c["dbeta_tol"] * c["dbeta_tol"] * dt(q) if q > 1 \

@@ -26,12 +26,15 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
 4b. K6 ``pin_group_solve`` (the whole pin solve of a screen holding groups
     of size > 1) against its twin on the CPU: float32 and float64, S in
     {64, 1024, 4096} (and 16,384 in float64, grad and beta in global
-    memory), qmax in {2, 4, 8, 32}, groups of mixed sizes (one of
+    memory), qmax in {2, 4, 8, 32} (and 64 in float64, V read from global
+    memory), groups of mixed sizes (one of
     size 1), a rank-deficient block and a zero penalty, from a cold start
-    (alpha 1) and a warm one (alpha 0.5): the same active flags and beta
-    within 1e-10 (float64) or 1e-4 of max |beta| (float32), and whether
-    the results are bit-equal; the time per update beside the chain's
-    floor (every update 0);
+    (alpha 1) and a warm one (alpha 0.5), and four float32 warm cases whose
+    root finds reach ``newton_max_iters`` (S in {1024, 4096}, qmax in
+    {4, 16}): beta, grad, active flags and info bit-equal to the twin's in
+    every case; each case's finds at the cap, cycle exits, Newton steps
+    run and time per update beside the chain's floor (every update 0) in
+    float32 at S = 1024 and 4096 and float64 at 1024;
 5. the headline fit: ``grpnet(X, glm.gaussian(y))`` on "cuda" at
    n = 40,000, p = 2,000, 100 lambdas, float32 (bench.py's problem), with a
    per-lambda KKT check in numpy float64, and one more fit under
@@ -40,8 +43,12 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     every pin solve but the first dry fit's, whose screen holds no group):
     a warm-up, five timed fits (median wall; the first two bit-equal),
     K6's launches, the Newton iterations' histogram (the share of root
-    finds that ran ``newton_max_iters``), a group KKT check per lambda in
-    float64, peak memory, one more fit under ``torch.profiler``;
+    finds that ran ``newton_max_iters``), the steps run and the cycle
+    exits, three of the warm-up fit's K6 calls with root finds at the cap
+    replayed on the host by the twin with full Newton walks (beta, grad,
+    flags and counts equal to the kernel's, or the run fails), K6's bound
+    over the fit's calls, a group KKT check per lambda in float64, peak
+    memory, one more fit under ``torch.profiler``;
 6. the big-S fit, whose screen set passes 1024, so K2 carries it: a
    warm-up fit whose every K2 solve is held bit-equal to the twin on the
    CPU on copies of its inputs, a timed fit (one K2 launch per pin solve
@@ -69,7 +76,8 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     ``groups=None``, 50 lambdas, float32, the same KKT check and profile;
     then K4's times as K3's;
     (10b) the same panel grouped one SNP a group (its three ancestry
-    columns), K4 and K6, with a group KKT check and a profiled fit;
+    columns), K4 and K6, with a group KKT check, the Newton counts, K6's
+    bound over the fit's calls and a profiled fit (K6's device time);
 11. a ``.snpdat`` file written and read by ``adelie_tpu_torch.io``, fitted
     in float64 on "cuda" and on "cpu";
 12. K5 ``snp_mul_many`` against its twin: float checks at fifteen
@@ -591,24 +599,251 @@ def k6_case(S, qmax, dtype, seed, case, reps=3, n=None):
     sizes = args[4].cpu().numpy()
     rows = int(sum(sizes[i] for i in moved))
     updates = max(int(info_k[3]), 1)
+    nb = pg.NEWTON_BINS
     return dict(S=S, qmax=qmax, dtype=str(dtype), case=case, ms=ms,
                 plain_ms=plain_ms, max_abs_err=err, bit_equal=bits,
                 iters=int(info_k[1]), updates=int(info_k[3]),
-                us_per_update=ms * 1e3 / updates, newton=info_k[4:6],
-                hist=info_k[6:], moved_groups=len(moved), rows=rows,
-                n_active=int(a_k.sum()), itemsize=dtype.itemsize,
+                us_per_update=ms * 1e3 / updates, finds=int(info_k[4]),
+                steps=int(info_k[5]), hist=[int(x) for x in info_k[6:6 + nb]],
+                steps_run=int(info_k[6 + nb]),
+                cycle_exits=int(info_k[7 + nb]), moved_groups=len(moved),
+                rows=rows, n_active=int(a_k.sum()), itemsize=dtype.itemsize,
                 G=int(sizes.shape[0]))
+
+
+def k6_ops(S, qmax, rows, updates, steps_run):
+    """FP32 operations of K6's work: an AXPY of S a moved coordinate's
+    row, the two rotations and dbeta (6 qmax^2 an update), 10 qmax a
+    Newton step run."""
+    return 2 * S * rows + 6 * qmax * qmax * updates + 10 * qmax * steps_run
 
 
 def k6_bound(r):
     """K6's bound for a case: the rows of the moved groups and V read once,
-    beta, grad and the slot buffers in and out, over HBM; an AXPY of S
-    for each moved coordinate's row, once a moving group (a floor: the
-    chain, not the bytes, sets K6's time)."""
+    beta, grad and the slot buffers in and out, over HBM, or ``k6_ops``
+    (a floor: the chain, not the bytes, sets K6's time)."""
     S, G, q, it = r["S"], r["G"], r["qmax"], r["itemsize"]
     nbytes = (r["rows"] * S * it + G * q * q * it + G * q * it
               + 4 * S * it + G * 22)
-    return bound(nbytes, 2 * S * r["rows"])
+    return bound(nbytes, k6_ops(S, q, r["rows"], r["updates"],
+                                r["steps_run"]))
+
+
+def k6_kept(run, keep=3):
+    """``run()`` with every K6 call of ``pin_cov_solve`` measured: its S,
+    slots G, qmax, coordinates whose beta changed (the moved rows of
+    ``k6_bound``), updates and Newton steps run.  The inputs and results of
+    the calls that have root finds at newton_max_iters are held on the
+    host, and ``keep`` of them, spread over the path, returned.  Returns
+    (run's result, the calls' numbers, the kept calls)."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver import pin
+    from adelie_tpu_torch.solver import pin_group_kernels as pg
+
+    inner = pin.pin_group_solve
+    calls, held = [], []
+    nb = pg.NEWTON_BINS
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def kept(*args):
+        host = [cpu(x) for x in args] if keep else None  # as given
+        out = inner(*args)
+        info = out[3].tolist()
+        A, beta = args[0], args[2]
+        calls.append(dict(S=A.shape[0], G=args[5].shape[0],
+                          qmax=args[5].shape[1],
+                          rows=int((out[0] != beta).sum()),
+                          itemsize=A.element_size(), updates=int(info[3]),
+                          steps_run=int(info[6 + nb])))
+        if keep and info[5 + nb] > 0:
+            held.append((host, [cpu(x) for x in out]))
+        return out
+
+    pin.pin_group_solve = kept
+    try:
+        result = run()
+    finally:
+        pin.pin_group_solve = inner
+    if len(held) > keep:
+        held = [held[i] for i in np.linspace(0, len(held) - 1, keep)
+                .round().astype(int)]
+    return result, calls, held
+
+
+def k6_cell_bound(calls):
+    """K6's bound over a fit's calls (``k6_kept``): the sum of each
+    call's ``k6_bound``."""
+    total = [k6_bound(c) for c in calls]
+    ms = sum(b[0] for b in total)
+    by_bytes = sum(b[0] for b in total if b[1] == "bytes")
+    return ms, "bytes" if by_bytes >= ms / 2 else "operations"
+
+
+def full_newton_phase(walks):
+    """``bcd._newton_phase`` with no cycle exit: every walk takes its steps
+    until it meets tol or max_iters.  A walk that reaches max_iters adds
+    (its cycle's period, the steps before the cycle) to ``walks``, or None
+    if no h repeated."""
+    import numpy as np
+
+    from adelie_tpu_torch import bcd
+
+    def walk(buf1, v, l1, h0, tol, max_iters):
+        dt = v.dtype.type
+        h = dt(h0)
+        fh, dfh = bcd._newton_step(buf1, v, l1, h, bcd._tiny(dt))
+        it, first, cycle = 0, {h.tobytes(): 0}, None
+        while np.abs(fh) > tol and it < max_iters:
+            h = np.maximum(h - fh / dfh, dt(0.0))
+            fh, dfh = bcd._newton_step(buf1, v, l1, h, bcd._tiny(dt))
+            it += 1
+            if cycle is None:
+                seen = first.setdefault(h.tobytes(), it)
+                if seen != it:
+                    cycle = (it - seen, seen)
+        if it == max_iters:
+            walks.append(cycle)
+        return h, it, it, False
+
+    return walk
+
+
+def walks_line(walks):
+    """The periods and tails of capped walks (``full_newton_phase``)."""
+    import numpy as np
+
+    cyc = [w for w in walks if w is not None]
+    if not cyc:
+        return f"{len(walks)} capped walks, none periodic"
+    per = np.asarray([w[0] for w in cyc])
+    tail = np.asarray([w[1] for w in cyc])
+    counts = ", ".join(f"{k}: {int((per == k).sum())}" for k in (1, 2, 3, 4))
+    return (f"{len(cyc)} of {len(walks)} capped walks periodic; periods "
+            f"{counts}, 5-8: {int(((per >= 5) & (per <= 8)).sum())}, "
+            f"more: {int((per > 8).sum())} (max {int(per.max())}); steps "
+            f"before the cycle: mean {tail.mean():.1f}, max {int(tail.max())}")
+
+
+def k6_replay_full(what, held):
+    """Each held K6 call (``k6_kept``) through the twin with full Newton
+    walks on the host: its beta, grad, active flags and (rsq, iters, done,
+    updates, finds, steps, histogram) must equal the kernel's bit for bit,
+    so the kernel's exit ends every capped walk where the full walk ends
+    and counts its steps.  Returns (calls, finds at newton_max_iters,
+    their cycle exits, the capped walks' (period, tail))."""
+    from adelie_tpu_torch import bcd
+    from adelie_tpu_torch.solver import pin_group_kernels as pg
+
+    nb = pg.NEWTON_BINS
+    walks = []
+    inner = bcd._newton_phase
+    bcd._newton_phase = full_newton_phase(walks)
+    capped = exits = 0
+    try:
+        for i, (args, out) in enumerate(held):
+            twin = pg.pin_group_solve_ref(*args)
+            for name, x, y in zip(("beta", "grad", "active"), out, twin):
+                if not same_bits(x, y):
+                    fail(f"{what}: K6 call {i} (S={args[0].shape[0]}): "
+                         f"{name} differs from the full walks' twin")
+            k, t = out[3].tolist(), twin[3].tolist()
+            if k[:6 + nb] != t[:6 + nb] or t[7 + nb] != 0:
+                fail(f"{what}: K6 call {i}: counts {k} against the full "
+                     f"walks' {t}")
+            capped += int(k[5 + nb])
+            exits += int(k[7 + nb])
+    finally:
+        bcd._newton_phase = inner
+    return len(held), capped, exits, walks
+
+
+def newton_line(nw):
+    """The Newton counts of a fit (``pin_group_kernels.newton``)."""
+    h = nw["hist"]
+    finds = max(nw["solves"], 1)
+    return (f"Newton: {nw['updates']} group updates, {nw['solves']} root "
+            f"finds, {nw['iters']} Newton steps of the full walks "
+            f"({nw['iters'] / finds:.1f} a find), {nw['steps_run']} run; "
+            f"steps a find: 0: {h[0]}, " + ", ".join(
+                f"[{1 << (b - 1)}, {1 << b}): {h[b]}" for b in range(1, 11))
+            + f", newton_max_iters: {h[11]} ({h[11] / finds:.3f} of the "
+            f"finds, {nw['cycle_exits']} ended by the cycle rule)")
+
+
+# phase 4b's float32 cases whose root finds hit newton_max_iters, so that
+# the walks end by the cycle rule: (S, qmax), each warm (alpha 0.5)
+K6_CAPPED = ((1024, 4), (1024, 16), (4096, 4), (4096, 16))
+
+
+def k6_line(r):
+    """A phase-4b case's line: the check, the Newton counts, the times."""
+    h = r["hist"]
+    return (f"S={r['S']} qmax={r['qmax']} {r['dtype']} {r['case']}: active "
+            f"flags equal to the twin's, max |beta - twin| "
+            f"{r['max_abs_err']:.2e}"
+            + (" (beta, grad and info bit-equal)" if r["bit_equal"]
+               else " (not bit-equal)")
+            + f"; iters {r['iters']}, updates {r['updates']} (moved groups "
+            f"{r['moved_groups']}, active {r['n_active']}), Newton finds "
+            f"{r['finds']}: {h[-1]} at newton_max_iters, {r['cycle_exits']} "
+            f"ended by the cycle rule, {r['steps']} steps of the full walks, "
+            f"{r['steps_run']} run; kernel {r['ms']:.3f} ms = "
+            f"{r['us_per_update']:.3f} us an update; twin "
+            f"{r['plain_ms']:.1f} ms")
+
+
+def k6_phase(card):
+    """Phase 4b: K6 against its twin in every case, bit-equal, then the
+    chain's floor (every update 0) in float32 at S = 1024 and 4096 and in
+    float64 at 1024.  Returns (the cases' results, the floors')."""
+    import torch
+
+    k6 = []
+    for dtype in (torch.float32, torch.float64):
+        for S, qmax in ((64, 2), (64, 8), (1024, 4), (1024, 32), (4096, 4),
+                        (4096, 8)):
+            for case in ("cold", "warm"):
+                k6.append(k6_case(S, qmax, dtype, seed=S + qmax, case=case))
+    # past about S = 13,000 in float64, grad, beta and the lists leave
+    # shared memory for global memory (n = 4,096 samples: a Gram of rank
+    # 4,096, many zero eigenvalues)
+    k6.append(k6_case(16384, 4, torch.float64, seed=16388, case="cold",
+                      reps=1, n=4096))
+    # past STAGE_QMAX = 32, V and the coupling block are read from global
+    # memory, not staged
+    k6.append(k6_case(1024, 64, torch.float64, seed=1088, case="cold"))
+    for S, qmax in K6_CAPPED:
+        r = k6_case(S, qmax, torch.float32, seed=S + qmax + 1, case="warm")
+        if r["hist"][-1] <= 0:
+            fail(f"K6 S={S} qmax={qmax} float32 warm: no root find reached "
+                 "newton_max_iters")
+        k6.append(r)
+    for r in k6:
+        phase("K6", f"{k6_line(r)} | {card}")
+    n_bits = sum(r["bit_equal"] for r in k6)
+    phase("K6", f"{n_bits} of {len(k6)} cases bit-equal to the twin; "
+          f"{sum(r['cycle_exits'] for r in k6)} of "
+          f"{sum(r['hist'][-1] for r in k6)} finds at newton_max_iters "
+          f"ended by the cycle rule | {card}")
+    if n_bits != len(k6):
+        fail("K6: " + ", ".join(
+            f"S={r['S']} qmax={r['qmax']} {r['dtype']} {r['case']}"
+            for r in k6 if not r["bit_equal"]) + " not bit-equal to the twin")
+    floors = []
+    for S, dtype in ((1024, torch.float32), (4096, torch.float32),
+                     (1024, torch.float64)):
+        r = k6_case(S, 4, dtype, seed=S + 5, case="floor")
+        floors.append(r)
+        phase("K6", f"floor S={S} qmax=4 {dtype}: {r['updates']} updates, "
+              f"{r['moved_groups']} moving (the unpenalized group's ridge "
+              f"update), the rest 0 (lambda above lambda_max); "
+              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update: "
+              f"the chain's rotation, norm test and barrier | {card}")
+    return k6, floors
 
 
 def group_kkt_check(what, G, B, lmdas, groups, sizes, penalty, alpha):
@@ -1463,38 +1698,7 @@ def main():
     # 4b. K6 against its twin: the whole grouped solve
     from adelie_tpu_torch.solver import pin_group_kernels as pg
 
-    k6 = []
-    for dtype in (torch.float32, torch.float64):
-        for S, qmax in ((64, 2), (64, 8), (1024, 4), (1024, 32), (4096, 4),
-                        (4096, 8)):
-            for case in ("cold", "warm"):
-                k6.append(k6_case(S, qmax, dtype, seed=S + qmax, case=case))
-    # past about S = 13,000 in float64, grad, beta and the lists leave
-    # shared memory for global memory (n = 4,096 samples: a Gram of rank
-    # 4,096, many zero eigenvalues)
-    k6.append(k6_case(16384, 4, torch.float64, seed=16388, case="cold",
-                      reps=1, n=4096))
-    for r in k6:
-        phase("K6", f"S={r['S']} qmax={r['qmax']} {r['dtype']} {r['case']}: "
-              f"active flags equal to the twin's, max |beta - twin| "
-              f"{r['max_abs_err']:.2e}"
-              + (" (beta, grad and info bit-equal)" if r["bit_equal"]
-                 else " (not bit-equal)")
-              + f"; iters {r['iters']}, updates {r['updates']} (moved "
-              f"groups {r['moved_groups']}, active {r['n_active']}), Newton "
-              f"finds {int(r['newton'][0])} ({int(r['hist'][-1])} ran "
-              f"newton_max_iters, {int(r['newton'][1])} steps); kernel "
-              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update; "
-              f"twin {r['plain_ms']:.1f} ms | {card}")
-    n_bits = sum(r["bit_equal"] for r in k6)
-    phase("K6", f"{n_bits} of {len(k6)} cases bit-equal to the twin")
-    for S in (1024, 4096):
-        r = k6_case(S, 4, torch.float32, seed=S + 5, case="floor")
-        phase("K6", f"floor S={S} qmax=4 float32: {r['updates']} updates, "
-              f"{r['moved_groups']} moving (the unpenalized group's ridge "
-              f"update), the rest 0 (lambda above lambda_max); "
-              f"{r['ms']:.3f} ms = {r['us_per_update']:.3f} us an update: "
-              f"the chain's rotation, norm test and barrier | {card}")
+    k6, _ = k6_phase(card)
     torch.cuda.empty_cache()
 
     # 5. the headline fit (warm-up, then the timed main-path fit)
@@ -1533,7 +1737,9 @@ def main():
     # for every pin solve (warm-up, five timed fits, one profiled)
     groups5 = np.arange(0, 2000, 4)
     kw5g = dict(kw, groups=groups5)
-    warm5g, _ = fit(ad, Xm, y, **kw5g)
+    # the warm-up fit's K6 calls: their bound, and a sample of those with
+    # root finds at newton_max_iters replayed with full walks on the host
+    (warm5g, _), calls5g, held5g = k6_kept(lambda: fit(ad, Xm, y, **kw5g))
     torch.cuda.reset_peak_memory_stats()
     zero_counts(tk.launches, pg.launches)
     pg.reset_newton()
@@ -1576,15 +1782,22 @@ def main():
           f"[{min(caps5g)}, {max(caps5g)}], launches {counts5g}, worst "
           f"group KKT {kkt5g:.2e} lambda (float64), peak memory "
           f"{peak5g:.2f} GiB | {card}")
-    h = newton5g["hist"]
-    finds = max(newton5g["solves"], 1)
-    phase("headline-grouped", f"Newton: {newton5g['updates']} group "
-          f"updates, {newton5g['solves']} root finds, {newton5g['iters']} "
-          f"Newton steps ({newton5g['iters'] / finds:.1f} a find); steps a "
-          f"find: 0: {h[0]}, " + ", ".join(
-              f"[{1 << (b - 1)}, {1 << b}): {h[b]}" for b in range(1, 11))
-          + f", newton_max_iters: {h[11]} ({h[11] / finds:.3f} of the "
-          f"finds) | {card}")
+    phase("headline-grouped", f"{newton_line(newton5g)} | {card}")
+    if not (newton5g["steps_run"] <= newton5g["iters"]
+            and newton5g["cycle_exits"] <= newton5g["hist"][-1]):
+        fail(f"grouped headline: Newton counts {newton5g}")
+    n_rep, capped_rep, exits_rep, walks5g = k6_replay_full(
+        "grouped headline", held5g)
+    k6_cell5g = k6_cell_bound(calls5g)
+    phase("headline-grouped", f"full walks: {n_rep} K6 calls of the warm-up "
+          f"fit (S {[c[0][0].shape[0] for c in held5g]}) with {capped_rep} "
+          f"finds at newton_max_iters ({exits_rep} ended by the cycle rule) "
+          f"replayed on the host with no exit: beta, grad, active flags, "
+          f"Newton steps and histogram equal the kernel's; "
+          f"{walks_line(walks5g)}; K6 bound over the fit's "
+          f"{len(calls5g)} calls {k6_cell5g[0]:.4f} ms ({k6_cell5g[1]}) | "
+          f"{card}")
+    del held5g
     prof5g = profile_fit(ad, Xm, y, **kw5g)
     k6_prof = [] if prof5g is None else [
         v for name, v in prof5g[2].items() if "pin_group_solve_kernel" in name]
@@ -1822,10 +2035,13 @@ def main():
     # columns s A + a in one group, so K4 and K6 carry the fit
     groups10 = PHASED_A * np.arange(PHASED_S)
     kw10g = dict(kw9, groups=groups10)
-    warm10g, _ = fit(ad, Xm10, y10, **kw10g)
+    (warm10g, _), calls10g, _ = k6_kept(
+        lambda: fit(ad, Xm10, y10, **kw10g), keep=0)
     zero_counts(tk.launches, sk.launches, pg.launches)
+    pg.reset_newton()
     wall10g, st10g = fit(ad, Xm10, y10, **kw10g)
     counts10g = {**tk.launches, **sk.launches, **pg.launches}
+    newton10g = dict(pg.newton)
     if st10g.error != "":
         fail(f"grouped phased fit: error {st10g.error!r}")
     if counts10g["snp_mul_no_na"] <= 0 or counts10g["pin_group_solve"] <= 0:
@@ -1844,8 +2060,19 @@ def main():
           f"[{min(st10g.benchmark['pin_caps'])}, "
           f"{max(st10g.benchmark['pin_caps'])}], worst group KKT "
           f"{kkt10g:.2e} lambda (float64), launches {counts10g} | {card}")
+    k6_cell10g = k6_cell_bound(calls10g)
+    phase("phased-grouped", f"{newton_line(newton10g)}; K6 bound over the "
+          f"fit's {len(calls10g)} calls {k6_cell10g[0]:.4f} ms "
+          f"({k6_cell10g[1]}) | {card}")
     prof10g = profile_fit(ad, Xm10, y10, **kw10g)
-    phase("phased-grouped", f"{profile_line(prof10g)} | {card}")
+    k6_prof10g = [] if prof10g is None else [
+        v for name, v in prof10g[2].items() if "pin_group_solve_kernel" in name]
+    k6_line10g = "K6 device time not measured"
+    if k6_prof10g:
+        k6_n, k6_dev = map(sum, zip(*k6_prof10g))
+        k6_line10g = (f"K6 device time {k6_dev:.1f} ms in {k6_n} launches")
+    phase("phased-grouped", f"{profile_line(prof10g)}; {k6_line10g} | "
+          f"{card}")
     del Xm10, io10, st10g
     torch.cuda.empty_cache()
 

@@ -6,9 +6,14 @@ Bars: the Newton family (``newton``, ``newton_abs``, ``newton_brent``,
 (``ista``, ``fista``, ``fista_adares``) at the solver tolerance, 1e-9.
 The cases cover the general root find, the zero case (||v|| <= l1), the
 ridge closed form (l1 = 0), zero eigenvalues and padded lanes (L = 0 and
-v = 0, which must give x = 0).
+v = 0, which must give x = 0).  In float32, where a third of the Newton
+walks never meet ``tol`` and end by the cycle rule, the twin's walk is held
+bit for bit against the walk without that exit, and the JAX package's
+float32 solve at 1e-5 of max(|x|, 1), the float32 bar of
+``test_newton_solver_keeps_dtype_and_device``.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -128,3 +133,76 @@ def test_lane_sum_is_k6_order():
             h //= 2
         assert tb.lane_sum(x) == lanes[0]
         assert tb.lane_sum(x) == pytest.approx(float(x.sum()), abs=1e-5)
+
+
+def capped_problems(n, seed=0):
+    """``n`` float32 block problems of size 4: L at scales 1e-2 to 10, l1 a
+    uniform share of ||v||, l2 0 or 0.1.  About a third of their Newton
+    walks reach 1,000 steps without meeting tol = 1e-12."""
+    rng = np.random.default_rng(seed)
+    scale = 10 ** rng.uniform(-2, 1, n)
+    L = (np.abs(rng.standard_normal((n, 4))) * scale[:, None]) \
+        .astype(np.float32)
+    v = rng.standard_normal((n, 4)).astype(np.float32)
+    l1 = (rng.uniform(0, 1, n) * np.linalg.norm(v, axis=1)) \
+        .astype(np.float32)
+    l2 = rng.choice([0.0, 0.1], n).astype(np.float32)
+    return L, v, l1, l2
+
+
+def full_walk(buf1, v, l1, h0, tol, max_iters):
+    """Guarded Newton with no cycle exit: (h, iters, the distance back to
+    the last h's previous occurrence, 0 if none)."""
+    dt = v.dtype.type
+    h = dt(h0)
+    fh, dfh = tb._newton_step(buf1, v, l1, h, tb._tiny(dt))
+    seen = [h.tobytes()]
+    while np.abs(fh) > tol and len(seen) <= max_iters:
+        h = np.maximum(h - fh / dfh, dt(0.0))
+        fh, dfh = tb._newton_step(buf1, v, l1, h, tb._tiny(dt))
+        seen.append(h.tobytes())
+    past = seen[-2::-1]
+    return h, len(seen) - 1, past.index(seen[-1]) + 1 if seen[-1] in past \
+        else 0
+
+
+def test_newton_cycle_exit_is_the_full_walk():
+    """``block_update_np`` with the cycle exit against the walk without it,
+    on 300 seeded float32 problems: the same h and x bit for bit and the
+    same iters.  Every walk at the cap ends on a cycle; fixed points
+    (period 1) and periods of 2 or more both occur."""
+    L, v, l1, l2 = capped_problems(300)
+    tol = np.float32(1e-12)
+    periods = []
+    for i in range(len(L)):
+        x, iters, general, run, cycled = tb.block_update_np(
+            L[i], v[i], l1[i], l2[i], tol, 1000)
+        if not general:
+            continue
+        buf1 = L[i] + l2[i]
+        h0 = tb._newton_abs_init(buf1, v[i], l1[i], tol)
+        h, it_full, period = full_walk(buf1, v[i], l1[i], h0, tol, 1000)
+        x_full = (h * v[i]) / (buf1 * h + l1[i])
+        assert x.tobytes() == x_full.tobytes() and iters == it_full
+        if it_full < 1000:
+            assert not cycled and run == it_full
+        else:
+            assert cycled and run < 1000 and period > 0
+            periods.append(period)
+    assert len(periods) >= 60
+    assert 1 in periods and max(periods) >= 2
+
+
+def test_newton_solver_float32_matches_jax():
+    """The same 300 float32 problems through ``newton_solver`` and the JAX
+    package's (vmapped, one compile): x within 1e-5 of max(|x|, 1); the
+    walks' counts differ where the two packages sum in other orders."""
+    L, v, l1, l2 = capped_problems(300)
+    xj, _ = jax.jit(jax.vmap(jb.newton_solver))(L, v, l1, l2)
+    xj = np.asarray(xj)
+    assert xj.dtype == np.float32
+    for i in range(len(L)):
+        x, _ = tb.newton_solver(L[i], v[i], float(l1[i]), float(l2[i]))
+        assert x.dtype == torch.float32
+        bar = 1e-5 * max(float(np.abs(xj[i]).max()), 1.0)
+        np.testing.assert_allclose(x.numpy(), xj[i], rtol=0, atol=bar)

@@ -19,6 +19,7 @@ import torch
 
 import adelie_tpu as ja
 import adelie_tpu_torch as ta
+import adelie_tpu_torch.bcd as tb
 from adelie_tpu.configs import set_configs as ja_set_configs
 from adelie_tpu.solver.pin import pin_cov_solve as jax_pin_cov_solve
 from adelie_tpu.solver.pin import screen_eigh as jax_screen_eigh
@@ -29,6 +30,7 @@ from adelie_tpu_torch.solver import pin_kernels as tk
 from adelie_tpu_torch.solver.state_core import (abs_grad_kernel, group_cols,
                                                 group_sum)
 from adelie_tpu_torch.state import state_from_numpy
+from test_torch_bcd import full_walk
 from test_torch_grpnet import _WS_KEYS, _assert_same_path
 
 torch.set_num_threads(1)
@@ -287,6 +289,40 @@ def test_grpnet_uses_the_newton_knobs():
         assert st.error == ""
         hists.append(list(pg.newton["hist"]))
     assert hists[0][-1] == 0 and hists[1][-1] > 0
+
+
+def test_grouped_float32_newton_counts_match_the_full_walks(monkeypatch):
+    """A float32 grouped fit on the CPU, where a third of the root finds
+    reach newton_max_iters and end by the cycle rule: the steps run are at
+    most ``newton["iters"]`` and the cycle exits at most the finds at the
+    cap; the updates, finds, ``newton["iters"]``, histogram and the whole
+    path equal, bit for bit, a fit whose walks run in full (``bcd``'s walk
+    replaced by one with no exit)."""
+    d = ta.data.dense(200, 40, 10, equal_groups=True, seed=23)
+    X = np.asfortranarray(d["X"], dtype=np.float32)
+    y = d["glm"].y.numpy().astype(np.float32)
+    kw = dict(groups=d["groups"], lmda_path_size=8, device="cpu")
+    fits = []
+    for exit_rule in (True, False):
+        if not exit_rule:
+            def walk(buf1, v, l1, h0, tol, max_iters):
+                h, iters, _ = full_walk(buf1, v, l1, h0, tol, max_iters)
+                return h, iters, iters, False
+            monkeypatch.setattr(tb, "_newton_phase", walk)
+        pg.reset_newton()
+        st = ta.grpnet(X, ta.glm.gaussian(y), **kw)
+        assert st.error == "" and st.betas.dtype == np.float32
+        fits.append((st, {k: (list(v) if isinstance(v, list) else v)
+                          for k, v in pg.newton.items()}))
+    (st, got), (st_full, want) = fits
+    capped = got["hist"][-1]
+    assert 0 < got["cycle_exits"] <= capped
+    assert got["steps_run"] < got["iters"]
+    assert want["cycle_exits"] == 0 and want["steps_run"] == want["iters"]
+    for key in ("updates", "solves", "iters", "hist"):
+        assert got[key] == want[key], key
+    np.testing.assert_array_equal(st.lmdas, st_full.lmdas)
+    np.testing.assert_array_equal(st.betas.toarray(), st_full.betas.toarray())
 
 
 def _phased_io(tmp_path, n, s, A, seed):
