@@ -7,9 +7,11 @@ the two lasso kernels of ``solver/pin_kernels.py`` and, for groups of size
 > 1, the grouped kernel of ``solver/pin_group_kernels.py`` (whose block
 updates are ``bcd``'s), built from ``csrc/`` at the first CUDA call.  On
 CPU tensors the kernels' plain PyTorch twins run instead.  The port so far
-covers ``grpnet`` with a gaussian loss and groups of any size on a dense
-matrix or on a packed SNP matrix (``io``, ``matrix.snp_unphased``,
-``matrix.snp_phased_ancestry``), in device memory or, for a panel larger
+covers ``grpnet`` with groups of any size for the single-response GLMs
+(the gaussian in covariance form; binomial, poisson and Cox by IRLS,
+``glm``) on a dense matrix or on a packed SNP matrix (``io``,
+``matrix.snp_unphased``, ``matrix.snp_phased_ancestry``), in device
+memory or, for a panel larger
 than the card, streamed from host memory (``snp_unphased(streaming=True)``);
 its gradients are the decode-matmul kernels of ``matrix/snp_kernels.py``.
 ROADMAP.md lists what comes next.

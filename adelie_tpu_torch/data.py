@@ -1,11 +1,11 @@
 """Synthetic data generators (reference adelie/data.py:84,222,362).
 
 Counterpart of ``dense`` and the SNP generators of ``adelie_tpu/data.py``,
-for a gaussian response with one class: the same
+for the single-response GLMs (gaussian, binomial, poisson, cox): the same
 ``numpy.random.default_rng`` calls in the same order, so one seed gives the
-same arrays in both packages (``X``, ``y``, ``groups`` and ``penalty``;
-unphased, ``beta``; phased, ``ancestries``).  Other GLMs and ``K > 1``
-raise: they come with the GLM slice (ROADMAP.md queue 1 item 3).
+same arrays in both packages (``X``, the response, ``groups`` and
+``penalty``; unphased, ``beta``; phased, ``ancestries``).  ``K > 1`` and
+the multi-response GLMs raise (ROADMAP.md: multi-response).
 """
 
 import numpy as np
@@ -14,12 +14,42 @@ from . import glm as glm_mod
 
 __all__ = ["dense", "snp_phased_ancestry", "snp_unphased"]
 
+_GLMS = ("gaussian", "binomial", "poisson", "cox")
 
-def _check_gaussian(glm, K):
-    if glm != "gaussian" or K != 1:
+
+def _check_glm(glm, K):
+    if K != 1 or glm in ("multigaussian", "multinomial"):
         raise NotImplementedError(
             f"simulated {glm!r} responses with K={K} are not ported yet "
-            "(ROADMAP.md queue 5: GLMs)")
+            "(ROADMAP.md: multi-response)")
+    if glm not in _GLMS:
+        raise ValueError(f"Unknown glm: {glm}")
+
+
+def _sample_response(glm_name, eta, snr, rng, dtype=None):
+    """The response of ``glm_name`` at the linear predictor ``eta`` (n, 1)
+    or (n,), as ``adelie_tpu/data.py:_sample_response`` draws it."""
+    signal_var = float(np.var(eta))
+    noise_scale = np.sqrt(signal_var / snr) if signal_var > 0 else 1.0
+    if glm_name == "gaussian":
+        y = eta.ravel() + noise_scale * rng.standard_normal(eta.shape[0])
+        return glm_mod.gaussian(y, dtype=dtype)
+    if glm_name == "binomial":
+        scale = np.sqrt(snr / max(signal_var, 1e-12))
+        mu = 1.0 / (1.0 + np.exp(-eta.ravel() * min(scale, 1.0)))
+        y = rng.binomial(1, mu).astype(float)
+        return glm_mod.binomial(y, dtype=dtype)
+    if glm_name == "poisson":
+        lam = np.exp(np.clip(eta.ravel(), -30, 5))
+        y = rng.poisson(lam).astype(float)
+        return glm_mod.poisson(y, dtype=dtype)
+    # cox
+    n = eta.shape[0]
+    u = rng.uniform(size=n)
+    stop = -np.log(u) * np.exp(-np.clip(eta.ravel(), -30, 30))
+    start = np.zeros(n)
+    status = rng.binomial(1, 0.7, size=n).astype(float)
+    return glm_mod.cox(start=start, stop=stop, status=status, dtype=dtype)
 
 
 def _gaussian(eta, snr, rng, n, dtype, cast_y):
@@ -29,6 +59,15 @@ def _gaussian(eta, snr, rng, n, dtype, cast_y):
     if cast_y and dtype is not None:
         y = y.astype(dtype)
     return y, glm_mod.gaussian(y, dtype=dtype)
+
+
+def _response(glm, eta, snr, rng, n, dtype, cast_y):
+    """``(y, glm object)``: the gaussian fast path of the SNP generators,
+    or ``_sample_response``."""
+    if glm == "gaussian":
+        return _gaussian(eta, snr, rng, n, dtype, cast_y)
+    glm_obj = _sample_response(glm, eta[:, 0], snr, rng, dtype=dtype)
+    return glm_obj.y.numpy(), glm_obj
 
 
 def _make_groups(p, G, equal_groups, rng):
@@ -58,9 +97,10 @@ def dense(
     """Dense simulated dataset (reference data.py:84): ``G`` groups over
     ``p`` equicorrelated features (correlation ``rho``), random group
     boundaries unless ``equal_groups`` (then ``p // G`` columns a group,
-    the last group taking the rest), a sparse coefficient vector, a
-    gaussian response with signal-to-noise ratio ``snr``."""
-    _check_gaussian(glm, K)
+    the last group taking the rest), a sparse coefficient vector and a
+    response of the GLM ``glm`` ("gaussian", "binomial", "poisson" or
+    "cox") with signal-to-noise ratio ``snr``."""
+    _check_glm(glm, K)
     rng = np.random.default_rng(seed)
     groups, group_sizes = _make_groups(p, G, equal_groups, rng)
 
@@ -77,8 +117,7 @@ def dense(
     beta = rng.standard_normal((p, K))
     zero_idx = rng.choice(p, int(sparsity * p), replace=False)
     beta[zero_idx] = 0.0
-    _, glm_obj = _gaussian((X @ beta)[:, :1], snr, rng, n, None,
-                           cast_y=False)
+    glm_obj = _sample_response(glm, (X @ beta)[:, :1], snr, rng)
     return {
         "X": np.asfortranarray(X),
         "glm": glm_obj,
@@ -105,10 +144,11 @@ def snp_unphased(
 ):
     """Simulated SNP unphased calldata (reference data.py:222).
 
-    ``X`` entries are in {0, 1, 2, -9 (NA)}; ``y`` is gaussian with
-    signal-to-noise ratio ``snr``; ``dtype`` sets the response's dtype.
+    ``X`` entries are in {0, 1, 2, -9 (NA)}; ``y`` is the response of the
+    GLM ``glm`` with signal-to-noise ratio ``snr``; ``dtype`` sets the
+    response's dtype.
     """
-    _check_gaussian(glm, K)
+    _check_glm(glm, K)
     rng = np.random.default_rng(seed)
     probs = np.array([
         1 - one_ratio - two_ratio - missing_ratio,
@@ -130,7 +170,7 @@ def snp_unphased(
     zero_idx = rng.choice(p, int(sparsity * p), replace=False)
     beta[zero_idx] = 0.0
     Ximp = np.where(X == -9, 0, X).astype(float)
-    y, glm_obj = _gaussian(Ximp @ beta, snr, rng, n, dtype, cast_y=True)
+    y, glm_obj = _response(glm, Ximp @ beta, snr, rng, n, dtype, cast_y=True)
 
     return {
         "X": X,
@@ -162,9 +202,9 @@ def snp_phased_ancestry(
 
     Returns calldata (n, 2s) in {0,1} and ancestries (n, 2s) in {0..A-1};
     column ``j A + a`` of the matrix counts the haplotypes of SNP j with
-    ancestry a.
+    ancestry a; the response is the GLM ``glm``'s.
     """
-    _check_gaussian(glm, K)
+    _check_glm(glm, K)
     rng = np.random.default_rng(seed)
     hap_prob = one_ratio + two_ratio
     X = rng.binomial(1, hap_prob, size=(n, 2 * s)).astype(np.int8)
@@ -188,7 +228,8 @@ def snp_phased_ancestry(
             col = X[:, 2 * j + hap]
             a = anc[:, 2 * j + hap]
             dense_X[np.arange(n), j * A + a] += col
-    y, glm_obj = _gaussian(dense_X @ beta, snr, rng, n, dtype, cast_y=False)
+    y, glm_obj = _response(glm, dense_X @ beta, snr, rng, n, dtype,
+                           cast_y=False)
 
     return {
         "X": X,

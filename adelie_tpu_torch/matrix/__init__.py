@@ -23,7 +23,8 @@ def dense(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
     package's signature and ignored."""
     if method != "naive":
         raise NotImplementedError(
-            f"dense(method={method!r}) is not ported yet (ROADMAP.md queue 1)"
+            f"dense(method={method!r}) is not ported yet (ROADMAP.md: "
+            "the covariance method)"
         )
     return MatrixNaiveDense(mat, dtype=dtype, device=device, copy=copy)
 

@@ -7,7 +7,7 @@ unphased matrices, K4 for phased ancestry, ``snp_kernels.py``) that decodes
 the bytes on the fly; ``gather``, ``tmul`` and ``sq_mul`` decode blocks of
 at most ``_CHUNK`` columns with plain tensor code, as the JAX package
 leaves them to XLA.  An unphased NA (code 3) reads the column's impute
-value.  Not ported: ``mesh`` sharding (ROADMAP.md queue 11) and
+value.  Not ported: ``mesh`` sharding (ROADMAP.md: scale-out) and
 ``mul_spec``, which exists to keep XLA programs data-independent.
 """
 

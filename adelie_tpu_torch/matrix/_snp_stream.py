@@ -30,7 +30,7 @@ copies.  On the CPU the tiles are views of the host array: no copies.
 Left out, as the port needs neither: the JAX package pads C to a power of
 two and the last tile to a full tile to bound XLA compiles; K5 takes any
 C >= 1 and the tile's real row count.  Not ported: ``mesh`` sharding
-(ROADMAP.md queue 11) and ``mul_spec``, which raises as in the JAX package.
+(ROADMAP.md: scale-out) and ``mul_spec``, which raises as in the JAX package.
 """
 
 import warnings

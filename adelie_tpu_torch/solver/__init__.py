@@ -1,10 +1,12 @@
-"""Solver entry point: ``grpnet``, the single-response gaussian path.
+"""Solver entry point: ``grpnet``, single-response GLMs.
 
-Counterpart of ``adelie_tpu/solver/__init__.py``.  A matrix in device
-memory runs ``GaussianNaiveDriver``, a host-streamed SNP matrix
-``StreamedGaussianDriver``.  GLMs other than the gaussian, multi-response
-and constrained inputs are later slices of ROADMAP.md and raise
-``NotImplementedError``.
+Counterpart of ``adelie_tpu/solver/__init__.py``.  The gaussian loss with
+``opt=True`` runs in covariance form: ``GaussianNaiveDriver`` on a matrix
+in device memory, ``StreamedGaussianDriver`` on a host-streamed SNP
+matrix.  Every other GLM (binomial, poisson, cox, a user's ``GlmBase``, the
+gaussian with ``opt=False``) runs the IRLS path: ``GlmNaiveDriver`` or
+``StreamedGlmDriver``.  Multi-response GLMs and constraints are later
+slices of ROADMAP.md and raise ``NotImplementedError``.
 """
 
 import traceback
@@ -19,7 +21,8 @@ from ..device import resolve_device
 from ..logger import logger
 from ..utils import types
 from .gaussian import GaussianNaiveDriver, GaussianNaiveState
-from .streamed import StreamedGaussianDriver
+from .glm_driver import GlmNaiveDriver, GlmNaiveState
+from .streamed import StreamedGaussianDriver, StreamedGlmDriver
 
 __all__ = ["grpnet", "finalize_state"]
 
@@ -70,11 +73,13 @@ def grpnet(
     exit_cond=None,
     device=None,
 ):
-    """Group elastic net path, gaussian loss (reference solver.py:354-958).
+    """Group elastic net path (reference solver.py:354-958).
 
-    Minimizes  1/2 sum_i w_i (y_i - x_i^T b - b0)^2 + lmda sum_g p_g
-    (alpha ||b_g||_2 + (1-alpha)/2 ||b_g||_2^2)  over a decreasing lambda
-    path with BASIL screening.
+    Minimizes  loss(X b + b0 + offsets) + lmda sum_g p_g (alpha ||b_g||_2 +
+    (1-alpha)/2 ||b_g||_2^2)  over a decreasing lambda path with BASIL
+    screening, for the loss of ``glm``: gaussian in covariance form, any
+    other single-response GLM by IRLS (``irls_max_iters`` iterations to
+    ``irls_tol`` a lambda).
 
     ``device``: where every tensor of the fit lives; ``None`` means the
     device of a matrix ``X`` or, for an array, ``"cuda"``, which raises
@@ -86,25 +91,23 @@ def grpnet(
     ``newton_tol`` within ``newton_max_iters`` steps.
 
     Accepted for the JAX package's signature and ignored: ``n_threads``
-    and ``progress_bar``; ``irls_max_iters`` and ``irls_tol`` until GLMs
-    are ported (ROADMAP.md queue 1 item 3).  ``check_state=True``
-    raises ``NotImplementedError`` until the state checks are ported
-    (ROADMAP.md queue 1 item 7).
+    and ``progress_bar``.  ``check_state=True`` raises
+    ``NotImplementedError`` until the state checks are ported (ROADMAP.md:
+    the model-selection layer).
     """
     if check_state:
         raise NotImplementedError(
-            "check_state=True is not ported yet (ROADMAP.md queue 1 item 7: "
-            "the model-selection layer)")
+            "check_state=True is not ported yet (ROADMAP.md: the "
+            "model-selection layer)")
     screen_rule = types.screen_rule(screen_rule)
     if glm.is_multi:
         raise NotImplementedError(
-            "multi-response GLMs are not ported yet (ROADMAP.md queue 5)")
-    if not (glm.name == "gaussian" and glm.opt):
-        raise NotImplementedError(
-            f"glm {glm.name!r} is not ported yet (ROADMAP.md queue 5: GLMs)")
+            "multi-response GLMs are not ported yet (ROADMAP.md: "
+            "multi-response)")
     if constraints is not None and any(c is not None for c in constraints):
         raise NotImplementedError(
-            "constraints are not ported yet (ROADMAP.md queue 7)")
+            "constraints are not ported yet (ROADMAP.md: constraints)")
+    is_gaussian_opt = glm.name == "gaussian" and glm.opt
 
     X = _as_matrix(X, device)
     streaming = getattr(X, "is_streaming", False)
@@ -190,6 +193,37 @@ def grpnet(
     )
 
     like = dict(dtype=tdtype, device=dev)
+    if is_gaussian_opt:
+        state = _gaussian_state(X, glm, y_arr, offsets_np, warm_start,
+                                streaming, like, common)
+        driver = (StreamedGaussianDriver if streaming
+                  else GaussianNaiveDriver)(state)
+    else:
+        state = _glm_state(X, glm, offsets_np, warm_start, like, common,
+                           irls_max_iters, irls_tol)
+        driver = (StreamedGlmDriver if streaming else GlmNaiveDriver)(state)
+
+    if warm_start is not None:
+        # restore the KKT invariance quantities carried by the warm start
+        state.abs_grad = getattr(warm_start, "abs_grad", None)
+        if state.abs_grad is None and np.isfinite(state.lmda):
+            state.update_abs_grad(state.lmda)
+        elif state.abs_grad is not None:
+            state.abs_grad = np.asarray(state.abs_grad)
+
+    try:
+        driver.solve_path(progress_bar=progress_bar, exit_cond=exit_cond)
+    except Exception as exc:  # return a valid partial state (py_state.cpp:83-89)
+        state.error = str(exc)
+        logger.error(f"solver: {exc}\n{traceback.format_exc()}")
+
+    return finalize_state(state)
+
+
+def _gaussian_state(X, glm, y_arr, offsets_np, warm_start, streaming, like,
+                    common):
+    n = X.rows()
+    intercept = common["intercept"]
     y = torch.as_tensor(y_arr, **like)
     weights = glm.weights.to(**like)
     offs = torch.as_tensor(offsets_np, **like)
@@ -218,30 +252,42 @@ def grpnet(
         resid = torch.as_tensor(warm_start.resid, **like)
         resid_sum = float(warm_start.resid_sum)
         grad = torch.as_tensor(warm_start.grad, **like)
-
     state = GaussianNaiveState(
         weights=weights, X_means=X_means, y_mean=y_mean, y_var=y_var,
         rsq=rsq, resid=resid, resid_sum=resid_sum, **common,
     )
     state.grad = grad
-    driver = (StreamedGaussianDriver if streaming
-              else GaussianNaiveDriver)(state)
+    return state
 
-    if warm_start is not None:
-        # restore the KKT invariance quantities carried by the warm start
-        state.abs_grad = getattr(warm_start, "abs_grad", None)
-        if state.abs_grad is None and np.isfinite(state.lmda):
-            state.update_abs_grad(state.lmda)
-        elif state.abs_grad is not None:
-            state.abs_grad = np.asarray(state.abs_grad)
 
-    try:
-        driver.solve_path(progress_bar=progress_bar, exit_cond=exit_cond)
-    except Exception as exc:  # return a valid partial state (py_state.cpp:83-89)
-        state.error = str(exc)
-        logger.error(f"solver: {exc}\n{traceback.format_exc()}")
-
-    return finalize_state(state)
+def _glm_state(X, glm, offsets_np, warm_start, like, common, irls_max_iters,
+               irls_tol):
+    """The IRLS path's state (reference solver/__init__.py:268-304): eta
+    starts at the offsets, ``loss_null`` comes from the driver."""
+    glm = glm.to(like["device"], common["dtype"])
+    offs = torch.as_tensor(offsets_np.ravel(), **like)
+    if warm_start is None:
+        eta = offs
+        resid = glm.gradient(eta)
+        grad = X.mul(resid, torch.ones(X.rows(), **like))
+        loss_null = None
+        loss_full = float(glm.loss_full())
+        beta0 = 0.0
+    else:
+        eta = torch.as_tensor(warm_start.eta, **like)
+        resid = torch.as_tensor(warm_start.resid, **like)
+        grad = torch.as_tensor(warm_start.grad, **like)
+        loss_null = float(warm_start.loss_null)
+        loss_full = float(warm_start.loss_full)
+        beta0 = float(warm_start.beta0)
+    state = GlmNaiveState(
+        glm=glm, offsets=offs, beta0=beta0, eta=eta, resid=resid,
+        loss_null=loss_null, loss_full=loss_full,
+        irls_max_iters=int(irls_max_iters), irls_tol=float(irls_tol),
+        **common,
+    )
+    state.grad = grad
+    return state
 
 
 def finalize_state(state):

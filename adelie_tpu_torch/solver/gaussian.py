@@ -49,14 +49,18 @@ class GaussianNaiveDriver:
     def large_lmda(self):
         return large_lmda(self.s.dtype)
 
-    def _record(self, lmda, screen_beta, rsq, resid_sum, cache):
+    def _append_beta(self, screen_beta, cache):
+        """Append the screen's coefficients as a sparse row of length p."""
         s = self.s
         nz = np.abs(screen_beta) > 0
-        beta_row = sp.csr_matrix(
+        s.betas.append(sp.csr_matrix(
             (screen_beta[nz], (np.zeros(int(nz.sum()), int), cache.cols[nz])),
             shape=(1, s.p),
-        )
-        s.betas.append(beta_row)
+        ))
+
+    def _record(self, lmda, screen_beta, rsq, resid_sum, cache):
+        s = self.s
+        self._append_beta(screen_beta, cache)
         s.intercepts.append(
             float(s.intercept) * (s.y_mean + resid_sum) if s.intercept else 0.0
         )

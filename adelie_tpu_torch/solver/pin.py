@@ -37,13 +37,28 @@ def screen_gram(Xs, w, intercept: bool):
 
     ``Xs`` (n, S) with zero-padded columns; returns ``(A, means)`` with
     ``A = Xs^T diag(w) Xs - means means^T`` when ``intercept`` (w sums to 1).
+    At its peak it holds the Gram, the (n, S) product ``Xs * w`` and, while
+    centering, an eighth of the Gram (``subtract_outer_``).
     """
     with matmul_precision():
         means = w @ Xs
         A = Xs.T @ (Xs * w[:, None])
     if intercept:
-        A = A - torch.outer(means, means)
+        subtract_outer_(A, means)
     return A, means
+
+
+def subtract_outer_(A, means):
+    """``A -= outer(means, means)`` in place, in row blocks of at most an
+    eighth of the rows (at least 256), so one Gram and one block of the
+    outer product are alive at a time.  Each entry is ``a - m_i m_j``
+    rounded twice, as in ``A - torch.outer(means, means)``: the same
+    bits."""
+    S = A.shape[0]
+    step = max(256, S // 8)
+    for i in range(0, S, step):
+        A[i:i + step] -= torch.outer(means[i:i + step], means)
+    return A
 
 
 def insert_cols(Xs, Xnew, s_old: int):
@@ -110,6 +125,37 @@ def screen_eigh(A, slot_begin, slot_size, qmax: int):
 # --------------------------------------------------------------------------- #
 
 
+def pin_cov_launch(A, grad, beta, slot_begin, slot_size, eigvals, eigvecs,
+                   penalty, is_active, lmda, alpha, tol, dbeta_tol, newton_tol,
+                   newton_max_iters, max_iters, rsq):
+    """Launch the pin solve at one lambda (``pin_cov_solve``'s arguments)
+    and return ``(beta, grad, is_active, info)`` with ``info`` still on the
+    device: a caller that has more to read copies it with that, in one
+    host copy, and hands the list to ``pin_info``."""
+    if eigvals.shape[1] > 1:
+        return pin_group_solve(
+            A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
+            eigvals, eigvecs, penalty, is_active, lmda, alpha, tol,
+            dbeta_tol, newton_tol, newton_max_iters, max_iters, rsq,
+        )
+    solve = (pin_lasso_solve if A.shape[0] <= MAX_PALLAS_S
+             else pin_lasso_solve_rows)
+    return solve(
+        A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
+        eigvals, penalty, is_active, lmda, alpha, tol, max_iters, rsq,
+    )
+
+
+def pin_info(info, grouped: bool):
+    """``(rsq, iters, done)`` of a solve's ``info`` read to the host as a
+    list; a grouped solve's Newton counts go to
+    ``pin_group_kernels.newton``."""
+    if grouped:
+        record_newton(info)
+    rsq_n, iters, done = info[:3]
+    return rsq_n, int(iters), bool(done)
+
+
 def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, eigvecs,
                   penalty, is_active, lmda, alpha, tol, dbeta_tol, newton_tol,
                   newton_max_iters, max_iters, rsq):
@@ -125,21 +171,9 @@ def pin_cov_solve(A, grad, beta, slot_begin, slot_size, eigvals, eigvecs,
     is_active, rsq, iters, done)`` with the last three on the host; a
     grouped solve's Newton counts go to ``pin_group_kernels.newton``.
     """
-    if eigvals.shape[1] > 1:
-        beta, grad, is_active, info = pin_group_solve(
-            A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
-            eigvals, eigvecs, penalty, is_active, lmda, alpha, tol,
-            dbeta_tol, newton_tol, newton_max_iters, max_iters, rsq,
-        )
-        info = info.tolist()
-        record_newton(info)
-    else:
-        solve = (pin_lasso_solve if A.shape[0] <= MAX_PALLAS_S
-                 else pin_lasso_solve_rows)
-        beta, grad, is_active, info = solve(
-            A, grad.contiguous(), beta.contiguous(), slot_begin, slot_size,
-            eigvals, penalty, is_active, lmda, alpha, tol, max_iters, rsq,
-        )
-        info = info.tolist()
-    rsq_n, iters, done = info[:3]
-    return beta, grad, is_active, rsq_n, int(iters), bool(done)
+    beta, grad, is_active, info = pin_cov_launch(
+        A, grad, beta, slot_begin, slot_size, eigvals, eigvecs, penalty,
+        is_active, lmda, alpha, tol, dbeta_tol, newton_tol, newton_max_iters,
+        max_iters, rsq)
+    return (beta, grad, is_active,
+            *pin_info(info.tolist(), eigvals.shape[1] > 1))

@@ -15,44 +15,15 @@ import torch
 
 from ..configs import configs
 from ..utils import TORCH_DTYPE, bucket, bucket_pow2
+from ..utils.groups import GroupIndex, group_sum
 from .pin import insert_cols, screen_eigh, screen_gram, screen_gram_extend
-
-
-def group_cols(groups, group_sizes, p):
-    """(G, Q) int64 column indices of each group, ``Q`` the largest group
-    size rounded up to a power of 2, padded with ``p`` (a zero entry that
-    ``group_sum`` appends)."""
-    Q = bucket_pow2(int(group_sizes.max())) if len(group_sizes) else 1
-    lane = np.arange(Q)
-    cols = np.where(lane[None, :] < group_sizes[:, None],
-                    groups[:, None] + lane[None, :], p)
-    return cols.astype(np.int64)
-
-
-def group_sum(x, cols):
-    """Per-group sums of ``x`` (p,) or (p, C) over the groups of ``cols``
-    (``group_cols``), in a fixed order: the (G, Q) gather, zero-padded, is
-    folded in halves, ``x[:, :Q/2] + x[:, Q/2:]`` and so on.  So the sums do
-    not depend on the device or the run (``index_add_`` on the card adds by
-    atomics, in no fixed order), and a group of one is its entry."""
-    if cols.shape[1] == 1:
-        # every group one column: group g is column g
-        return x
-    pad = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    g = torch.cat([x, pad])[cols]
-    h = g.shape[1] // 2
-    while h:
-        g = g[:, :h] + g[:, h:2 * h]
-        h //= 2
-    return g[:, 0]
 
 
 def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, cols,
                     l2_scale):
     """Per-group norms ``||grad_g - (1-alpha) lmda pen_g beta_g||_2``
     (reference update_abs_grad, solver_base.hpp:21-110) over the groups of
-    ``cols`` (``group_cols``).  Padded slots (``cols_padded < 0``) are
+    ``cols`` (a ``GroupIndex``).  Padded slots (``cols_padded < 0``) are
     dropped; the squares are summed by ``group_sum``.
     """
     # padded slots write to a spare last entry, which is then cut off
@@ -226,7 +197,9 @@ class ScreenCache:
     def rebuild_weighted(self, weights, intercept):
         """(Re)compute the Gram and the per-slot diagonals.  A pending
         append-only extension with the SAME weights tensor as the previous
-        Gram extends it by one cross block; anything else recomputes."""
+        Gram extends it by one cross block; anything else recomputes (an
+        IRLS iteration's new weights always do), and consumes the pending
+        extension either way."""
         ext = self._pending_ext
         if (
             ext is not None
@@ -248,6 +221,11 @@ class ScreenCache:
                 A_pad, self.Xs, Xnew, weights, means_pad, s_old, intercept,
             )
         else:
+            # drop the old Gram, and the new columns of an extension the
+            # full Gram covers, before the new one is formed: an IRLS
+            # refresh would otherwise hold both
+            ext = self._pending_ext = None
+            self.A = self._A_prev = self.eigvals = self.eigvecs = None
             self.A, self.means_s = screen_gram(self.Xs, weights, intercept)
         self._pending_ext = None
         self._weights_ref = weights
@@ -332,9 +310,10 @@ class NaiveStateBase:
         # per streamed pass of the host-streamed driver: its KKT seconds
         "kkt": [],
         # per processed lambda: CD sweeps and sweeps x screened groups
-        "cd_iters": [], "cd_updates": [],
-        # per pin solve, dry fits included: the screen capacity S of its
-        # Gram (S > 1024 runs K2)
+        # (gaussian), IRLS iterations (GLMs)
+        "cd_iters": [], "cd_updates": [], "irls_iters": [],
+        # per pin solve (a GLM's: per IRLS iteration), dry fits included:
+        # the screen capacity S of its Gram (S > 1024 runs K2)
         "pin_caps": [],
     })
     total_time: float = 0.0
@@ -343,7 +322,7 @@ class NaiveStateBase:
     # internals
     _cache: ScreenCache = field(default_factory=ScreenCache)
     _screen_version: int = 0
-    _group_cols: Any = None      # device (G, Q) int64, see group_cols
+    _group_cols: Any = None      # GroupIndex on the device
     _penalty_cols: Any = None    # device (p,)
 
     def __post_init__(self):
@@ -356,9 +335,8 @@ class NaiveStateBase:
             self.max_screen_size = G
         if self.max_active_size is None:
             self.max_active_size = G
-        self._group_cols = torch.as_tensor(
-            group_cols(np.asarray(self.groups), np.asarray(self.group_sizes),
-                       self.p), device=self.device)
+        self._group_cols = GroupIndex(self.groups, self.group_sizes, self.p,
+                                      self.device)
         self._penalty_cols = torch.as_tensor(
             np.repeat(self.penalty, self.group_sizes).astype(self.dtype),
             device=self.device,

@@ -20,22 +20,31 @@ lambdas runs in three steps instead of the in-device driver's one loop:
 The JAX package hands ``mul_many`` a ``lmda_chunk``-row stack padded past
 the processed lambdas; here only the processed lambdas' residuals go, with
 the same results (nothing reads the padded columns), so the dry fit at
-``lmda_max`` costs K5 one column, not a hundred.  Not ported:
-``debug_check_state`` (``state.check_state`` is ROADMAP.md queue 10) and the
-streamed GLM, constrained and multi-response drivers (queues 5 and 7).
+``lmda_max`` costs K5 one column, not a hundred.
+
+``StreamedGlmDriver`` runs the same three steps for a GLM: optimistic IRLS
+fits (``glm_fused.glm_chunk_step`` with no KKT check), one ``mul_many``
+pass over the processed lambdas' gradients ``glm.gradient(eta_c)`` (already
+weighted; no centering, the intercept being a coordinate of eta) and the
+same certify and rollback.  Not ported: ``debug_check_state`` (ROADMAP.md:
+the model-selection layer) and the streamed constrained and multi-response
+drivers (ROADMAP.md: constraints, multi-response).
 """
 
 import numpy as np
 import torch
 
 from ..configs import configs, matmul_precision
-from ..exceptions import MaxCDsError
+from ..exceptions import MaxCDsError, SolverError
 from ..utils import Stopwatch
+from ..utils.groups import group_sum
 from .fused import ChunkCarry, gaussian_chunk_step
 from .gaussian import GaussianNaiveDriver
-from .state_core import group_sum
+from .glm_driver import GlmNaiveDriver
+from .glm_fused import glm_chunk_step
 
-__all__ = ["StreamedGaussianDriver", "kkt_finalize", "residual_stack"]
+__all__ = ["StreamedGaussianDriver", "StreamedGlmDriver", "kkt_finalize",
+           "residual_stack"]
 
 
 def residual_stack(resid0, Xs, betas, beta0, w):
@@ -78,6 +87,23 @@ def kkt_finalize(Gfull, X_means, rsums, lmdas, alpha, penalty_cols, betas,
     viol = abs_grad_all > _thresholds(lmdas, alpha, penalty_groups)
     kkts = ~torch.any(viol & ~screen_mask[:, None], dim=0)
     return abs_grad_all, kkts, G
+
+
+def certify(fit_oks, kkts):
+    """The accepted prefix of a chunk's optimistic fits: it ends at the
+    first lambda whose fit failed or whose KKT check failed (a fit failure
+    after a KKT failure is speculative: retried, not raised).  Returns
+    ``(t, n_acc, first_fail, fit_failed)``: the lambda whose iterate the
+    state keeps (a KKT-failed fit keeps its own, for the retry; a failed
+    fit the last accepted one, -1 for none), the accepted count, the first
+    failure's index (None: all accepted) and whether the fit failed
+    there."""
+    fails = np.flatnonzero(~(fit_oks & kkts))
+    if not len(fails):
+        return len(fit_oks) - 1, len(fit_oks), None, False
+    first = int(fails[0])
+    fit_failed = not bool(fit_oks[first])
+    return first - int(fit_failed), first, first, fit_failed
 
 
 def _resid_at(resid0, Xs, beta_t, beta0):
@@ -180,20 +206,9 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
         kkts_h = kkts.cpu().numpy()
         s.benchmark["kkt"].append(sw_k.elapsed())
 
-        # certify: the accepted prefix ends at the first KKT failure or pin
-        # failure
-        accept = dones & kkts_h
-        fails = np.flatnonzero(~accept)
-        pin_failed = bool(len(fails)) and not bool(dones[fails[0]])
-        if len(fails):
-            t = n_acc = int(fails[0])
-            kkt_clean = early_stopped = False
-            if pin_failed:
-                # keep the last accepted iterate, not the unconverged one
-                t -= 1
-        else:
-            t, n_acc = n_proc - 1, n_proc
-            kkt_clean, early_stopped = True, carry.early_seen
+        t, n_acc, first_fail, pin_failed = certify(dones, kkts_h)
+        kkt_clean = first_fail is None
+        early_stopped = kkt_clean and carry.early_seen
 
         if record and n_acc:
             S_val = cache.S_val
@@ -227,9 +242,77 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
             self._have_prev_dev = True
         s.benchmark["fit_screen"].append(sw.elapsed())
         if pin_failed:
-            raise MaxCDsError(int(fails[0]))
+            raise MaxCDsError(first_fail)
         if not kkt_clean:
             _union_speculative_violators(
                 s, self._penalty_groups_dev, s.screen_mask_dev(),
-                abs_grad_all, lm, dones, first_fail=int(fails[0]))
+                abs_grad_all, lm, dones, first_fail=first_fail)
+        return n_acc, early_stopped, kkt_clean
+
+
+class StreamedGlmDriver(GlmNaiveDriver):
+    """GLM (IRLS) BASIL driver over a host-streamed matrix: the in-device
+    GLM driver's path loop with ``_run_chunk`` replaced by optimistic IRLS
+    fits, one streamed KKT pass and certify (reference
+    ``adelie_tpu/solver/streamed.py:526-691``)."""
+
+    def _run_chunk(self, lmdas, record):
+        s = self.s
+        sw = Stopwatch().start()
+        cache = s.ensure_screen_cache()
+        lmdas = np.asarray(lmdas, float)
+        _, _, _, _, _, emits = glm_chunk_step(
+            cache, s.glm, self._carry(cache), lmdas, **self._loop_args())
+        n_proc = len(emits)
+        if n_proc == 0:
+            s.benchmark["fit_screen"].append(sw.elapsed())
+            return 0, False, True
+        s.benchmark["irls_iters"].extend(e.irls_iters for e in emits)
+        lm = lmdas[:n_proc]
+        fitoks = np.asarray([e.fit_ok for e in emits])
+
+        # one streamed pass for the chunk's KKT
+        sw_k = Stopwatch().start()
+        betas = torch.stack([e.carry.beta for e in emits])
+        abs_grad_all, kkts, Gstack = kkt_finalize(
+            s.X.mul_many(torch.stack([e.carry.resid for e in emits])),
+            None, None, lm, s.alpha, s._penalty_cols, betas,
+            cache.cols_padded, s._group_cols, self._penalty_groups_dev,
+            s.screen_mask_dev(), False,
+        )
+        kkts_h = kkts.cpu().numpy()
+        s.benchmark["kkt"].append(sw_k.elapsed())
+
+        t, n_acc, first_fail, fit_failed = certify(fitoks, kkts_h)
+        kkt_clean = first_fail is None
+        early_stopped = kkt_clean and any(e.early for e in emits)
+
+        if record and n_acc:
+            betas_h = betas[:n_acc].cpu().numpy()
+            actives_h = torch.stack([e.carry.active for e in emits[:n_acc]]) \
+                .cpu().numpy()
+            for i, e in enumerate(emits[:n_acc]):
+                self._record_fit(lm[i], betas_h[i][: cache.S_val], e.b0,
+                                 e.dev, cache, actives_h[i].sum())
+
+        # advance to the target iterate
+        if t >= 0:
+            self._advance(emits[t].carry, cache)
+            s.abs_grad = abs_grad_all[:, t].cpu().numpy()
+            s.grad = Gstack[:, t].clone()
+            s.lmda = float(lm[t])
+        if record and n_acc:
+            self._prev_dev = emits[n_acc - 1].dev
+            self._have_prev_dev = True
+        s.benchmark["fit_screen"].append(sw.elapsed())
+
+        # failures raise after the state advance (a valid partial state)
+        if fit_failed:
+            if not emits[first_fail].pin_ok:
+                raise MaxCDsError(first_fail)
+            raise SolverError("Maximum IRLS iterations reached.")
+        if not kkt_clean:
+            _union_speculative_violators(
+                s, self._penalty_groups_dev, s.screen_mask_dev(),
+                abs_grad_all, lm, fitoks, first_fail=first_fail)
         return n_acc, early_stopped, kkt_clean

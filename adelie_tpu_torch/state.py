@@ -18,49 +18,61 @@ __all__ = ["WarmStart", "state_from_numpy"]
 
 @dataclass
 class WarmStart:
+    """The fields a fit carries over.  Every fit: the screen set and its
+    coefficients, ``lmda``, ``lmda_max``, ``resid``, ``grad`` and
+    ``abs_grad``.  The gaussian path also ``X_means``, ``y_mean``,
+    ``y_var``, ``rsq`` and ``resid_sum``; a GLM's IRLS path ``eta``,
+    ``beta0``, ``loss_null`` and ``loss_full``."""
+
     screen_set: np.ndarray
     screen_begins: np.ndarray
     screen_beta: np.ndarray
     screen_is_active: np.ndarray
     lmda: float
     lmda_max: float
-    X_means: torch.Tensor
-    y_mean: float
-    y_var: float
-    rsq: float
     resid: torch.Tensor
-    resid_sum: float
     grad: torch.Tensor
     abs_grad: np.ndarray
+    X_means: torch.Tensor = None
+    y_mean: float = None
+    y_var: float = None
+    rsq: float = None
+    resid_sum: float = None
+    eta: torch.Tensor = None
+    beta0: float = None
+    loss_null: float = None
+    loss_full: float = None
+
+
+_VECTORS = ("resid", "grad", "X_means", "eta")
+_SCALARS = ("lmda", "lmda_max", "y_mean", "y_var", "rsq", "resid_sum",
+            "beta0", "loss_null", "loss_full")
 
 
 def state_from_numpy(d, device=None) -> WarmStart:
     """A warm start from a dict of numpy arrays with the keys
     ``screen_set, screen_begins, screen_beta, screen_is_active, lmda,
-    lmda_max, X_means, y_mean, y_var, rsq, resid, resid_sum, grad,
-    abs_grad``.  ``X_means``, ``resid`` and ``grad`` go to ``device``
-    (resolved as in ``grpnet``) in the dtype of ``screen_beta``."""
+    lmda_max, resid, grad, abs_grad`` and either the gaussian path's
+    ``X_means, y_mean, y_var, rsq, resid_sum`` or a GLM's ``eta, beta0,
+    loss_null, loss_full``.  The vectors (``X_means``, ``resid``, ``grad``,
+    ``eta``) go to ``device`` (resolved as in ``grpnet``) in the dtype of
+    ``screen_beta``."""
     device = resolve_device(device)
     dtype = np.asarray(d["screen_beta"]).dtype
     if dtype not in (np.float32, np.float64):
         dtype = np.dtype(np.float64)
-
-    def dev(k):
-        return torch.as_tensor(np.array(d[k], dtype), device=device)
-
+    extra = {}
+    for k in _VECTORS:
+        if d.get(k) is not None:
+            extra[k] = torch.as_tensor(np.array(d[k], dtype), device=device)
+    for k in _SCALARS:
+        if d.get(k) is not None:
+            extra[k] = float(d[k])
     return WarmStart(
         screen_set=np.asarray(d["screen_set"], int),
         screen_begins=np.asarray(d["screen_begins"], int),
         screen_beta=np.asarray(d["screen_beta"], dtype),
         screen_is_active=np.asarray(d["screen_is_active"], bool),
-        lmda=float(d["lmda"]),
-        lmda_max=float(d["lmda_max"]),
-        X_means=dev("X_means"),
-        y_mean=float(d["y_mean"]),
-        y_var=float(d["y_var"]),
-        rsq=float(d["rsq"]),
-        resid=dev("resid"),
-        resid_sum=float(d["resid_sum"]),
-        grad=dev("grad"),
         abs_grad=np.asarray(d["abs_grad"], np.float64),
+        **extra,
     )

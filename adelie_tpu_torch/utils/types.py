@@ -5,7 +5,8 @@ adelie_core/util/types.hpp), so a typo'd ``screen_rule`` fails at
 
 from __future__ import annotations
 
-__all__ = ["Option", "bcd_solver", "newton_method", "read_mode", "screen_rule"]
+__all__ = ["Option", "bcd_solver", "binomial_link", "newton_method",
+           "read_mode", "screen_rule", "tie_method"]
 
 
 class Option:
@@ -48,6 +49,12 @@ class Option:
 
 # --- solver knobs (reference util/types.hpp screen_rule_type) ---
 screen_rule = Option("screen_rule", ("strong", "pivot"))
+
+# --- cox ties (reference util/types.hpp tie_method_type) ---
+tie_method = Option("tie_method", ("efron", "breslow"))
+
+# --- binomial links (reference glm.py:83-199) ---
+binomial_link = Option("link", ("logit", "probit"))
 
 # --- block-update solvers (reference util/types.hpp, bcd.py:40-49) ---
 newton_method = Option(

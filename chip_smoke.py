@@ -105,14 +105,58 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     printed, if the host's available memory cannot hold it and 16 GB
     more.
 
+The GLM phases (GLMs by IRLS: every IRLS iteration refreshes the screen
+Gram under its weights and runs a pin solve), each cell a warm-up and
+three timed fits (median wall, the first two bit-equal in lambda and
+beta, launches and peak device memory of the first), the IRLS iterations
+per lambda and the share at ``irls_max_iters``, a KKT check per lambda in
+float64 on the card (every zero group within lambda alpha p_g (1 + 1e-2)
+and the intercept's score within 1e-2 lambda; the nonzero groups'
+stationarity, which IRLS meets to ``irls_tol``, reported) and one fit
+under ``torch.profiler`` (device time by kernel group: the pin kernels,
+the GEMMs of the Gram refreshes, the GEMVs, ``eigh``; the idle share):
+
+G0. ``screen_gram``'s peak at S = 16,384 float32 with the intercept: one
+    Gram, the (n, S) product and one row block (the old centering held
+    three Grams), and the old formula's bits;
+G1. the logistic headline: phase 5's X, cases drawn with probability
+    sigmoid(z - 1) from the standardized true signal z (about 30 %),
+    ``glm.binomial(y)``, intercept, 100 lambdas to 1e-2, no early exit
+    (K1); then the probit link, one timed fit;
+G2. the poisson headline: the same X, y ~ Poisson(exp(z / 2)) (K1);
+G3. the grouped logistic: G1 in 500 groups of 4 (K6), its Newton counts;
+G4. the Cox headline: stop = -log(u) exp(-z / 2) rounded to 0.01 (ties),
+    70 % events, Efron, no intercept, 50 lambdas (K1); Breslow, one fit;
+    the KKT's gradient from a plain float64 sort and cumsum on the host
+    (``cox_grad_plain``), and the port's float64 gradient held against it;
+G5. the case-control GWAS (run after phase 9, on its panel in device
+    memory): cases from its 40 causal SNPs' standardized score, 50
+    lambdas to ``GWAS_GLM_MIN_RATIO`` (5e-2, the gaussian GWAS's),
+    intercept, early exit (K3, K1, K2); the warm-up runs under the
+    profiler;
+G6. the streamed case-control GWAS at the north star (run after phase
+    14, on its panel in host memory): cases from its 60 causal SNPs'
+    score, 50 lambdas to ``GWAS_GLM_MIN_RATIO``, a profiled warm-up and a
+    timed fit, each stopped by a wall budget (``GLM_STREAM_BUDGET_S``, an
+    ``exit_cond``) and bit-equal on the lambdas both solved, ``X.sweeps``,
+    the KKT check from one plain float64 pass (K5, K1);
+G7. ``data.dense(2000, 300, 60, glm=...)`` in float64 on "cuda" and on
+    "cpu" (the twins) for binomial, poisson and Cox, and a grouped
+    binomial (K6 against its twin): lambdas to rtol 1e-10, beta within
+    1e-6.
+
+G0-G4 and G7 run after phase 7c.
+
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
 first timed fit and read after it (K6), zeroed before phase 6's timed fit
 and read after it (K2), zeroed before phase 9 and read after it (K3),
 zeroed before phase 10 and read after it (K4; and before and after 10b's
 timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
-after it (K5, with no K3).  Every kernel must have run on its path.  Any failed
-phase exits non-zero.  The last three lines are the kernels' JSON, the
+after it (K5, with no K3); each GLM cell's, before and after its first
+timed fit.  Every kernel must have run on its path, and the kernels' JSON
+gives each kernel's launches on every path that ran it
+(``launches_by_path``).  Any failed phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
 one CUDA device; exits 1 without one.
 """
@@ -128,8 +172,13 @@ def fail(msg):
     raise SystemExit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One line of a phase's result, after the seconds since the start."""
+    print(f"[{name} +{time.perf_counter() - T_START:.0f} s] {msg}",
+          flush=True)
 
 
 def nvidia_smi():
@@ -847,11 +896,21 @@ def k6_phase(card):
 
 
 def group_kkt_check(what, G, B, lmdas, groups, sizes, penalty, alpha):
-    """The group KKT conditions per lambda, in float64: ``G`` (L, p) the
-    gradients X^T W r of each lambda's fit (r with its intercept), ``B``
-    (L, p) its coefficients.  Over zero groups ||G_g|| - lambda alpha p_g,
-    over nonzero groups ||G_g - lambda p_g (alpha b_g / ||b_g|| +
-    (1 - alpha) b_g)||, both <= 1e-2 lambda.  Returns the worst / lambda."""
+    """The group KKT conditions per lambda, in float64 (``group_kkt_parts``),
+    both held at 1e-2 lambda.  Returns the worst / lambda."""
+    v0, v1 = group_kkt_parts(G, B, lmdas, groups, sizes, penalty, alpha)
+    worst = float(max(v0.max(), v1.max()))
+    if not worst <= 1e-2:
+        fail(f"{what}: group KKT violation {worst:.3e} lambda")
+    return worst
+
+
+def group_kkt_parts(G, B, lmdas, groups, sizes, penalty, alpha):
+    """``G`` (L, p) the gradients X^T W r of each lambda's fit (r with its
+    intercept), ``B`` (L, p) its coefficients.  Returns per lambda, / lambda
+    (two (L,) tensors): over zero groups max ||G_g|| - lambda alpha p_g,
+    over nonzero groups max ||G_g - lambda p_g (alpha b_g / ||b_g|| +
+    (1 - alpha) b_g)||."""
     import numpy as np
     import torch
 
@@ -875,10 +934,7 @@ def group_kkt_check(what, G, B, lmdas, groups, sizes, penalty, alpha):
         alpha * Bg / torch.where(nz, bn, 1.0)[:, :, None]
         + (1 - alpha) * Bg)
     v1 = torch.where(nz, (Gg - sub).norm(dim=2), 0.0).amax(dim=1)
-    worst = float((torch.maximum(v0, v1) / lm).max())
-    if not worst <= 1e-2:
-        fail(f"{what}: group KKT violation {worst:.3e} lambda")
-    return worst
+    return v0 / lm, v1 / lm
 
 
 def dense_grad(X, y, state):
@@ -923,9 +979,10 @@ def kkt_check(what, X, y, state):
     return worst
 
 
-def headline_problem(n, p, k, seed):
+def headline_problem(n, p, k, seed, with_signal=False):
     """bench.py's problem: f32 Gaussian X, k true nonzeros, noise 0.5,
-    X and y centered."""
+    X and y centered; ``with_signal`` also returns the noise-free signal
+    X beta (the GLM phases' score)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -933,10 +990,11 @@ def headline_problem(n, p, k, seed):
     beta = np.zeros(p)
     nz = rng.choice(p, k, replace=False)
     beta[nz] = rng.standard_normal(k)
-    y = (X @ beta + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    signal = X @ beta
+    y = (signal + 0.5 * rng.standard_normal(n)).astype(np.float32)
     X -= X.mean(axis=0)
     y -= y.mean()
-    return X, y
+    return (X, y, signal) if with_signal else (X, y)
 
 
 def big_s_problem():
@@ -962,12 +1020,14 @@ def big_s_check_problem():
                       lmda_path_size=8, min_ratio=0.02)
 
 
-def fit(ad, Xm, y, **kw):
+def fit(ad, Xm, y, glm=None, **kw):
+    """(wall s, state) of one ``grpnet`` call: ``glm``, or the gaussian
+    of ``y``."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = ad.grpnet(Xm, ad.glm.gaussian(y), **kw)
+    state = ad.grpnet(Xm, ad.glm.gaussian(y) if glm is None else glm, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, state
 
@@ -1187,19 +1247,27 @@ def snp_problem(p, n, k, seed, lut, block=10_000):
     sig = rng.choice(p, k, replace=False)
     cols = unpack_2bit_np(packed[sig], n).astype(np.float32)
     beta = rng.standard_normal(k).astype(np.float32)
-    y = cols.T @ beta + 0.5 * rng.standard_normal(n).astype(np.float32)
-    return PackedIO(packed, n), y
+    io = PackedIO(packed, n)
+    io.causal = sig.tolist()
+    io.signal = cols.T @ beta        # the causal columns' score, no noise
+    y = io.signal + 0.5 * rng.standard_normal(n).astype(np.float32)
+    return io, y
 
 
 def snp_kkt_check(what, Xm, y, state, block=2048):
     """Per lambda, in float64 on the card, with the intercept: the
     gradient g = X^T W (y - X beta - beta_0), W = 1/n, over column blocks
-    decoded by ``gather`` (never K3).  Over zero coefficients
-    max |g_j| - lambda, over nonzeros |g_j - lambda sign(beta_j)|, both
-    <= 1e-2 lambda."""
+    decoded by ``gather`` (never K3), held by ``lasso_kkt``."""
+    return lasso_kkt(what, *snp_grad(Xm, y, state, block)[:3])
+
+
+def lasso_kkt(what, G, Bfull, lm):
+    """The lasso's KKT conditions per lambda from the gradients G (p, L)
+    and coefficients (L, p): over zero coefficients max |g_j| - lambda,
+    over nonzeros |g_j - lambda sign(beta_j)|, both <= 1e-2 lambda.
+    Returns the worst / lambda."""
     import torch
 
-    G, Bfull, lm = snp_grad(Xm, y, state, block)
     nz = Bfull != 0
     g = G.T                                                         # (L, p)
     v0 = torch.where(nz, 0.0, g.abs()).amax(dim=1) - lm
@@ -1211,9 +1279,11 @@ def snp_kkt_check(what, Xm, y, state, block=2048):
     return worst
 
 
-def snp_grad(Xm, y, state, block=2048):
-    """``snp_kkt_check``'s gradients G (p, L) = X^T W (y - X beta -
-    beta_0), coefficients (L, p) and lambdas, float64 on the card."""
+def snp_grad(Xm, y, state, block=2048, resid_fn=None):
+    """``snp_kkt_check``'s gradients G (p, L) = X^T R, coefficients (L, p),
+    lambdas and residuals R (n, L), float64 on the card.  R is
+    ``resid_fn(E)`` of the linear predictors E = X beta + beta_0 (n, L), by
+    default the gaussian's W (y - E), W = 1/n."""
     import numpy as np
     import torch
 
@@ -1225,7 +1295,8 @@ def snp_grad(Xm, y, state, block=2048):
     b0 = torch.as_tensor(np.asarray(state.intercepts, np.float64),
                          device=DEV)
     Xa = Xm.gather(torch.as_tensor(act, device=DEV)).double()      # (n, k)
-    R = (y64[:, None] - Xa @ Ba.T - b0[None, :]) / n                # (n, L)
+    E = Xa @ Ba.T + b0[None, :]                                     # (n, L)
+    R = (y64[:, None] - E) / n if resid_fn is None else resid_fn(E)
     G = torch.empty((p, R.shape[1]), dtype=torch.float64, device=DEV)
     for s in range(0, p, block):
         idx = torch.arange(s, min(s + block, p), device=DEV)
@@ -1233,10 +1304,10 @@ def snp_grad(Xm, y, state, block=2048):
     lm = torch.as_tensor(np.asarray(state.lmdas), device=DEV)
     Bfull = torch.zeros((len(lm), p), dtype=torch.float64, device=DEV)
     Bfull[:, torch.as_tensor(act, device=DEV)] = Ba
-    return G, Bfull, lm
+    return G, Bfull, lm, R
 
 
-def profile_fit(ad, Xm, y, **kw):
+def profile_fit(ad, Xm, y, glm=None, keep=None, **kw):
     """One more fit under ``torch.profiler``: (wall s, device busy ms,
     {kernel: (launches, device ms)}), busiest first.  The profiler has not
     been tried on every machine, so a failure of its own (starting,
@@ -1255,7 +1326,9 @@ def profile_fit(ad, Xm, y, **kw):
     except (RuntimeError, AttributeError) as exc:
         return failed(exc)
     try:
-        wall, _ = fit(ad, Xm, y, **kw)
+        wall, state = fit(ad, Xm, y, glm, **kw)
+        if keep is not None:
+            keep.append(state)
     finally:
         try:
             prof.stop()
@@ -1442,15 +1515,21 @@ def north_star_panel(P, N, seed=11):
         rng.standard_normal(N).astype(np.float32)
     io = PackedIO(packed, N)
     io.impute = np.zeros(P, np.float32)
+    io.causal, io.signal = causal.tolist(), g
     return io, y, causal
 
 
 def stream_kkt_check(what, io, y, state, block=2048, tile=NS_TILE):
-    """As snp_kkt_check, for a host-streamed fit, from the io's own arrays
-    and nothing of the streamed matrix: every lambda's residual in one
-    (n, L) float64 block, and one more pass over the panel, a tile at a
-    time by a plain synchronous copy, that decodes with plain torch code
-    and multiplies with torch.matmul in float64, never K5."""
+    """As snp_kkt_check, for a host-streamed fit (``stream_grad``)."""
+    return lasso_kkt(what, *stream_grad(io, y, state, block, tile)[:3])
+
+
+def stream_grad(io, y, state, block=2048, tile=NS_TILE, resid_fn=None):
+    """``snp_grad`` for a host-streamed fit, from the io's own arrays and
+    nothing of the streamed matrix: every lambda's residual in one (n, L)
+    float64 block, and one more pass over the panel, a tile at a time by a
+    plain synchronous copy, that decodes with plain torch code and
+    multiplies with torch.matmul in float64, never K5."""
     import numpy as np
     import torch
 
@@ -1471,8 +1550,9 @@ def stream_kkt_check(what, io, y, state, block=2048, tile=NS_TILE):
                          device=DEV)
     Xa = decode(torch.from_numpy(io.packed[act]).to(DEV),
                 imp[torch.as_tensor(act, device=DEV)])
-    R = (y64[:, None] - Xa @ Ba.T - b0[None, :]) / n
-    del Xa
+    E = Xa @ Ba.T + b0[None, :]
+    R = (y64[:, None] - E) / n if resid_fn is None else resid_fn(E)
+    del Xa, E
     G = torch.empty((p, R.shape[1]), dtype=torch.float64, device=DEV)
     for s in range(0, p, tile):
         e = min(s + tile, p)
@@ -1484,15 +1564,7 @@ def stream_kkt_check(what, io, y, state, block=2048, tile=NS_TILE):
     lm = torch.as_tensor(np.asarray(state.lmdas), device=DEV)
     Bfull = torch.zeros((len(lm), p), dtype=torch.float64, device=DEV)
     Bfull[:, torch.as_tensor(act, device=DEV)] = Ba
-    nz = Bfull != 0
-    g = G.T
-    v0 = torch.where(nz, 0.0, g.abs()).amax(dim=1) - lm
-    v1 = torch.where(nz, (g - lm[:, None] * Bfull.sign()).abs(),
-                     0.0).amax(dim=1)
-    worst = float((torch.maximum(v0, v1) / lm).max())
-    if not worst <= 1e-2:
-        fail(f"{what}: KKT violation {worst:.3e} lambda")
-    return worst
+    return G, Bfull, lm, R
 
 
 def many_timing(tile, n, Cs, imp, seed):
@@ -1578,6 +1650,603 @@ def chunk_pass_line(prof, passes):
     return (f"K5 by variant in the profiled fit: {k5}; tile copies "
             f"{copies:.1f} ms (H2D) over {passes} passes, "
             f"{copies / max(passes, 1):.1f} ms a pass")
+
+
+# --------------------------------------------------------------------------- #
+# phases G0 to G7: GLMs by IRLS                                               #
+# --------------------------------------------------------------------------- #
+
+
+def standardized(v):
+    import numpy as np
+
+    v = np.asarray(v, np.float64)
+    return (v - v.mean()) / v.std()
+
+
+def case_control(z, seed):
+    """Cases drawn with probability sigmoid(z - 1), z a standardized
+    score: about 30 % cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mu = 1.0 / (1.0 + np.exp(1.0 - z))
+    return (rng.uniform(size=len(z)) < mu).astype(np.float32)
+
+
+def cox_response(z, seed):
+    """Survival times ``-log(u) exp(-z / 2)`` rounded to 0.01 (so that
+    times tie), 70 % events: (stop, status)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    stop = np.round(-np.log(rng.uniform(size=len(z))) * np.exp(-0.5 * z), 2)
+    status = rng.binomial(1, 0.7, size=len(z)).astype(np.float64)
+    return stop, status
+
+
+def cox_grad_plain(stop, status, eta, efron):
+    """The negative gradient of the Cox partial likelihood in eta, weights
+    1/n, no left truncation, one stratum, in float64 numpy: rows sorted by
+    stop, at-risk sums as suffix sums from each tie group's first row,
+    the events' sums as prefix sums through its last row, and Efron's
+    correction from each event's rank among its group's events.  It shares
+    no code with ``adelie_tpu_torch.glm``."""
+    import numpy as np
+
+    n = len(stop)
+    order = np.argsort(stop, kind="stable")
+    t, d = np.asarray(stop)[order], np.asarray(status, np.float64)[order]
+    z = np.exp(eta[order] - eta.max()) / n
+    first = np.flatnonzero(np.r_[True, t[1:] != t[:-1]])
+    last = np.r_[first[1:], n] - 1
+    gid = np.cumsum(np.r_[True, t[1:] != t[:-1]]) - 1
+    count = np.bincount(gid, weights=d)[gid]
+    sigma = np.zeros(n)
+    if efron:
+        before = np.cumsum(d) - d
+        sigma = d * (before - before[first[gid]]) / np.maximum(count, 1)
+    risk = (np.cumsum(z[::-1])[::-1][first[gid]]
+            - sigma * np.bincount(gid, weights=z * d)[gid])
+    # each event carries its group's mean event weight, 1/n
+    v = np.where(d > 0, d / n / np.where(d > 0, risk, 1.0), 0.0)
+    acc = (np.cumsum(v)[last[gid]]
+           - d * np.bincount(gid, weights=sigma * v)[gid])
+    out = np.empty(n)
+    out[order] = d / n - acc * z
+    return out
+
+
+def glm_resid(kind, y=None):
+    """``E -> R``: each column's negative loss gradient in the linear
+    predictor, w (y - mu) with w = 1/n, float64 on the card, for the KKT
+    conditions of the fit (|X^T R| bounded), by plain formulas: for Cox
+    (``y`` = (stop, status, tie method)) ``cox_grad_plain`` on the host."""
+    import numpy as np
+    import torch
+
+    if kind == "cox":
+        stop, status, ties = y
+        return lambda E: torch.as_tensor(np.stack(
+            [cox_grad_plain(stop, status, e, ties == "efron")
+             for e in E.T.cpu().numpy()], 1), device=DEV)
+    y64 = torch.as_tensor(np.asarray(y, np.float64), device=DEV)[:, None]
+    n = y64.shape[0]
+    if kind == "logit":
+        return lambda E: (y64 - torch.sigmoid(E)) / n
+    if kind == "poisson":
+        return lambda E: (y64 - torch.exp(E)) / n
+
+    def probit(E):
+        Phi = torch.special.ndtr(E)
+        pdf = torch.exp(-0.5 * E * E) / np.sqrt(2 * np.pi)
+        return pdf * (y64 / Phi - (1 - y64) / (1 - Phi)) / n
+    return probit
+
+
+def cox_gradient_check(what, glm, X, state, stop, status, ties):
+    """The port's Cox gradient in float64 on the card against
+    ``cox_grad_plain`` at the path's last eta: the largest difference
+    relative to the largest entry, held at 1e-10."""
+    import numpy as np
+    import torch
+
+    eta = np.asarray(X, np.float64) @ state.betas[-1].toarray()[0]
+    port = glm.to(DEV, np.float64).gradient(
+        torch.as_tensor(eta, device=DEV)).cpu().numpy()
+    plain = cox_grad_plain(stop, status, eta, ties == "efron")
+    err = float(np.abs(port - plain).max() / np.abs(plain).max())
+    if not err <= 1e-10:
+        fail(f"{what}: the port's Cox gradient is {err:.2e} off the plain one")
+    return err
+
+
+def intercept_score(what, R, lm):
+    """The intercept's score |sum_i w_i (y_i - mu_i)| / lambda, worst over
+    the path; at most 1e-2 (it is unpenalized: 0 at the optimum)."""
+    import torch
+
+    lm = torch.as_tensor(lm, dtype=R.dtype, device=R.device)
+    worst = float((R.sum(0).abs() / lm).max())
+    if not worst <= 1e-2:
+        fail(f"{what}: intercept score {worst:.3e} lambda")
+    return worst
+
+
+def glm_kkt(what, G, B, state, R, groups, sizes, penalty):
+    """A GLM fit's KKT conditions per lambda in float64 from its gradients
+    G (L, p), coefficients B (L, p) and residuals R (n, L): every zero
+    group within lambda alpha p_g (1 + 1e-2), and the intercept's score,
+    held at 1e-2 lambda; the nonzero groups' stationarity (within IRLS's
+    ``irls_tol``, not held) is reported.  Returns (zero groups' worst,
+    nonzero groups' worst, score or None), each / lambda."""
+    lm = state.lmdas
+    v0, v1 = group_kkt_parts(G, B, lm, groups, sizes, penalty, 1.0)
+    zero, nonzero = float(v0.max()), float(v1.max())
+    if not zero <= 1e-2:
+        fail(f"{what}: KKT violation {zero:.3e} lambda at a zero group")
+    score = intercept_score(what, R, lm) if state.intercept else None
+    return zero, nonzero, score
+
+
+def singletons(p):
+    """(groups, sizes, penalty) of p groups of one column."""
+    import numpy as np
+
+    return np.arange(p), np.ones(p, int), np.ones(p)
+
+
+def glm_dense_kkt(what, X, state, resid_fn, groups, sizes, penalty):
+    """``glm_kkt`` of a dense fit (groups of one column give the lasso's
+    conditions)."""
+    import numpy as np
+    import torch
+
+    Xd = torch.as_tensor(np.asarray(X), device=DEV).double()
+    B = torch.as_tensor(state.betas.toarray(), device=DEV).double()
+    b0 = torch.as_tensor(np.asarray(state.intercepts, np.float64), device=DEV)
+    R = resid_fn(Xd @ B.T + b0[None, :])                       # (n, L)
+    return glm_kkt(what, (Xd.T @ R).T, B, state, R, groups, sizes, penalty)
+
+
+def kkt_words(kkt):
+    zero, nonzero, score = kkt
+    return (f"KKT (float64): zero groups {zero:.2e} lambda, nonzero groups' "
+            f"stationarity {nonzero:.2e} lambda"
+            + ("" if score is None else
+               f", intercept score {score:.2e} lambda"))
+
+
+def irls_line(state, irls_max_iters=int(1e4)):
+    """IRLS iterations in total, per lambda solved, and the share of the
+    lambda fits (dry fits and KKT retries included) at the cap."""
+    import numpy as np
+
+    it = np.asarray(state.benchmark["irls_iters"])
+    return (f"IRLS iterations {int(it.sum())} in {len(it)} lambda fits "
+            f"({it.sum() / max(len(state.lmdas), 1):.2f} per lambda solved,"
+            f" at most {int(it.max())}), share at irls_max_iters "
+            f"{float(np.mean(it >= irls_max_iters)):.3f}, host copies "
+            f"{int(it.sum()) + len(it)} (one an IRLS iteration, one a "
+            "lambda fit)")
+
+
+# the profile's kernel groups: the pin kernels, the SNP kernels, the GEMMs
+# (the Grams, and the gradients in blocks), the GEMVs (gradients X^T r)
+# and the batched eigh (cuSOLVER)
+PROFILE_GROUPS = (("K1", ("pin_lasso_solve_kernel",)),
+                  ("K2", ("pin_lasso_solve_rows_kernel",)),
+                  ("K6", ("pin_group_solve_kernel",)),
+                  ("K3/K4", ("snp_mul_kernel",)),
+                  ("K5", ("snp_mul_many_kernel",)),
+                  ("gemm", ("gemm", "xmma", "cutlass")),
+                  ("gemv", ("gemv", "dot_kernel", "reduce_1Block")),
+                  ("eigh", ("syev", "sytrd", "ormtr", "orgtr", "steqr",
+                            "stedc", "jacobi")))
+
+
+def glm_profile_line(prof):
+    """The profiled fit's device time by kernel group (``PROFILE_GROUPS``;
+    the rest as "other"), beside its wall and idle share."""
+    if prof is None or prof[1] <= 0:
+        return "profiled fit: device time not measured"
+    wall, _, events = prof
+    sums = {}
+    for name, (count, ms) in events.items():
+        if name.startswith("Mem"):
+            continue
+        low = name.lower()
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k.lower() in low for k in keys)), "other")
+        c, t = sums.get(group, (0, 0.0))
+        sums[group] = (c + count, t + ms)
+    busy = sum(t for _, t in sums.values())
+    parts = ", ".join(f"{g} {t:.1f} ms x{c}" for g, (c, t) in
+                      sorted(sums.items(), key=lambda kv: -kv[1][1]))
+    return (f"profiled fit: wall {wall:.3f} s, kernels busy {busy:.1f} ms, "
+            f"idle share {1 - busy / (wall * 1e3):.3f}; {parts}")
+
+
+def timed_fits(ad, Xm, glm, counters, reps=3, profiled=False, **kw):
+    """A warm-up and ``reps`` timed fits of one cell: the launch counts of
+    the first timed fit (counters zeroed just before it), its peak device
+    memory, the median wall, and the first two fits bit-equal in lambda
+    and beta, or the run fails.  With ``profiled`` the warm-up runs under
+    ``profile_fit``.  Returns (state, walls, warm-up s, counts, peak GiB,
+    the warm-up's profile or None)."""
+    import numpy as np
+    import torch
+
+    prof = None
+    if profiled:
+        prof = profile_fit(ad, Xm, None, glm, **kw)
+        warm = float("nan") if prof is None else prof[0]
+    else:
+        warm, _ = fit(ad, Xm, None, glm, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    wall, state = fit(ad, Xm, None, glm, **kw)
+    counts = {k: v for c in counters for k, v in c.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = [wall]
+    for i in range(reps - 1):
+        wall, st = fit(ad, Xm, None, glm, **kw)
+        walls.append(wall)
+        if i == 0:
+            second = st
+    if not (np.array_equal(state.lmdas, second.lmdas)
+            and np.array_equal(state.betas.toarray(),
+                               second.betas.toarray())):
+        fail(f"{glm.name}: two timed fits differ (beta or lambdas)")
+    return state, walls, warm, counts, peak, prof
+
+
+def glm_cell_line(what, state, walls, warm, counts, peak, kkt,
+                  warm_what="warm-up"):
+    import numpy as np
+
+    return (f"{what}: {len(state.lmdas)} lambdas, error "
+            f"{state.error!r}, wall median {np.median(walls):.3f} s of "
+            f"{len(walls)} ({min(walls):.3f}-{max(walls):.3f}; {warm_what} "
+            f"{warm:.3f} s), first two bit-equal, peak screen "
+            f"{int(max(state.screen_sizes))}, pin solves' S in "
+            f"[{min(state.benchmark['pin_caps'])}, "
+            f"{max(state.benchmark['pin_caps'])}], launches {counts}, "
+            f"{kkt_words(kkt)}, peak memory {peak:.2f} GiB")
+
+
+def gram_peak_phase(card, n=4096, S=16384):
+    """Repair of the screen Gram's centering: ``screen_gram`` at S = 16384
+    in float32 holds one Gram, the (n, S) product ``Xs * w`` and one row
+    block of the outer product at its peak (the old ``A - outer(m, m)``
+    held three Grams), and gives the old formula's bits."""
+    import torch
+
+    from adelie_tpu_torch.solver.pin import screen_gram
+
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    Xs = torch.randn((n, S), device=DEV, generator=gen)
+    w = torch.rand(n, device=DEV, generator=gen)
+    w = w / w.sum()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    A, means = screen_gram(Xs, w, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    gram, temp = S * S * 4, n * S * 4
+    block = max(256, S // 8) * S * 4
+    A0, _ = screen_gram(Xs, w, False)
+    same = torch.equal(A, A0 - torch.outer(means, means))
+    del A, A0, Xs
+    torch.cuda.empty_cache()
+    phase("gram-peak", f"screen_gram n={n} S={S} f32 with the intercept: "
+          f"peak {peak / 2**30:.3f} GiB above its inputs, against one Gram "
+          f"{gram / 2**30:.3f} + the (n, S) temporary {temp / 2**30:.3f} + "
+          f"a row block {block / 2**30:.3f} = "
+          f"{(gram + temp + block) / 2**30:.3f} GiB (three Grams: "
+          f"{3 * gram / 2**30:.3f}); bits equal to A - outer(m, m): {same}"
+          f" | {card}")
+    if not same or peak > gram + temp + block + 2**26:
+        fail("screen_gram: more than one Gram at its peak, or other bits")
+    return peak
+
+
+def glm_dense_phases(ad, card, tk, pg, X, signal):
+    """Phases G1-G4 on the headline's X (n = 40,000, p = 2,000, f32):
+    logistic (and probit), poisson, grouped logistic, Cox.  Returns the
+    launch counts of each cell's first timed fit."""
+    import numpy as np
+
+    Xm = ad.matrix.dense(X, device="cuda")
+    z = standardized(signal)
+    n, p = X.shape
+    ones = singletons(p)
+    kw = dict(lmda_path_size=100, min_ratio=1e-2, early_exit=False,
+              device="cuda")
+    out = {}
+
+    # G1. logistic headline (K1), then the probit link
+    y1 = case_control(z, seed=21)
+    glm1 = ad.glm.binomial(y1)
+    st, walls, warm, counts, peak, _ = timed_fits(
+        ad, Xm, glm1, (tk.launches,), **kw)
+    if st.error or len(st.lmdas) != 100 or counts["pin_lasso_solve"] <= 0:
+        fail(f"logistic headline: error {st.error!r}, {len(st.lmdas)} "
+             f"lambdas, launches {counts}")
+    kkt = glm_dense_kkt("logistic headline", X, st,
+                               glm_resid("logit", y1), *ones)
+    out["logistic"] = counts
+    phase("logistic", f"n={n} p={p} f32, {y1.mean():.3f} cases, "
+          + glm_cell_line("binomial(y), intercept", st, walls, warm, counts,
+                          peak, kkt) + f" | {card}")
+    phase("logistic", f"{irls_line(st)}; dev[-1] {st.devs[-1]:.4f} | {card}")
+    prof = profile_fit(ad, Xm, None, glm1, **kw)
+    phase("logistic", f"{glm_profile_line(prof)} | {card}")
+    glmp = ad.glm.binomial(y1, link="probit")
+    zero_counts(tk.launches)
+    wall, st = fit(ad, Xm, None, glmp, **kw)
+    counts = dict(tk.launches)
+    if st.error or len(st.lmdas) != 100 or counts["pin_lasso_solve"] <= 0:
+        fail(f"probit: error {st.error!r}, {len(st.lmdas)} lambdas, "
+             f"launches {counts}")
+    kkt = glm_dense_kkt("probit", X, st, glm_resid("probit", y1), *ones)
+    phase("probit", f"binomial(y, link='probit'): {len(st.lmdas)} lambdas, "
+          f"wall {wall:.3f} s (one fit), launches {counts}, "
+          f"{kkt_words(kkt)}; {irls_line(st)} | {card}")
+
+    # G2. poisson headline (K1)
+    y2 = np.random.default_rng(22).poisson(np.exp(0.5 * z)).astype(np.float32)
+    glm2 = ad.glm.poisson(y2)
+    st, walls, warm, counts, peak, _ = timed_fits(
+        ad, Xm, glm2, (tk.launches,), **kw)
+    if st.error or len(st.lmdas) != 100 or counts["pin_lasso_solve"] <= 0:
+        fail(f"poisson headline: error {st.error!r}, {len(st.lmdas)} "
+             f"lambdas, launches {counts}")
+    kkt = glm_dense_kkt("poisson headline", X, st,
+                               glm_resid("poisson", y2), *ones)
+    out["poisson"] = counts
+    phase("poisson", f"n={n} p={p} f32, mean count {y2.mean():.3f}, "
+          + glm_cell_line("poisson(y), intercept", st, walls, warm, counts,
+                          peak, kkt) + f" | {card}")
+    phase("poisson", f"{irls_line(st)}; "
+          f"{glm_profile_line(profile_fit(ad, Xm, None, glm2, **kw))} | "
+          f"{card}")
+
+    # G3. grouped logistic: 500 groups of 4 (K6)
+    groups = np.arange(0, p, 4)
+    kwg = dict(kw, groups=groups)
+    pg.reset_newton()
+    st, walls, warm, counts, peak, _ = timed_fits(
+        ad, Xm, glm1, (tk.launches, pg.launches), **kwg)
+    if st.error or len(st.lmdas) != 100 or counts["pin_group_solve"] <= 0:
+        fail(f"grouped logistic: error {st.error!r}, {len(st.lmdas)} "
+             f"lambdas, launches {counts}")
+    kkt = glm_dense_kkt("grouped logistic", X, st,
+                               glm_resid("logit", y1), groups,
+                               np.full(len(groups), 4),
+                               np.full(len(groups), 2.0))
+    out["logistic-grouped"] = counts
+    phase("logistic-grouped", f"n={n} p={p} f32 {len(groups)} groups of 4, "
+          + glm_cell_line("binomial(y), intercept", st, walls, warm, counts,
+                          peak, kkt) + f" | {card}")
+    pg.reset_newton()
+    prof = profile_fit(ad, Xm, None, glm1, **kwg)
+    phase("logistic-grouped", f"{irls_line(st)}; Newton (the profiled fit) "
+          f"{newton_line(pg.newton)} | {card}")
+    phase("logistic-grouped", f"{glm_profile_line(prof)} | {card}")
+
+    # G4. Cox headline: ties, 70 % events, Efron (K1); then Breslow
+    stop, status = cox_response(z, seed=24)
+    glm4 = ad.glm.cox(stop=stop, status=status)
+    kw4 = dict(kw, lmda_path_size=50, intercept=False)
+    st, walls, warm, counts, peak, _ = timed_fits(
+        ad, Xm, glm4, (tk.launches,), **kw4)
+    if st.error or len(st.lmdas) != 50 or counts["pin_lasso_solve"] <= 0:
+        fail(f"cox headline: error {st.error!r}, {len(st.lmdas)} lambdas, "
+             f"launches {counts}")
+    kkt = glm_dense_kkt("cox headline", X, st,
+                           glm_resid("cox", (stop, status, "efron")), *ones)
+    cox_err = cox_gradient_check("cox headline", glm4, X, st, stop, status,
+                                 "efron")
+    out["cox"] = counts
+    phase("cox", f"n={n} p={p} f32, {int(status.sum())} events, "
+          f"{glm4._n_ties} tie groups (stop rounded to 0.01), Efron, no "
+          "intercept, "
+          + glm_cell_line("cox(stop, status)", st, walls, warm, counts, peak,
+                          kkt) + f" (the KKT's gradient by a plain float64 "
+          f"sort and cumsum on the host; the port's float64 gradient at the "
+          f"last eta {cox_err:.1e} off it, relative) | {card}")
+    phase("cox", f"{irls_line(st)}; "
+          f"{glm_profile_line(profile_fit(ad, Xm, None, glm4, **kw4))} | "
+          f"{card}")
+    glmb = ad.glm.cox(stop=stop, status=status, tie_method="breslow")
+    wall, st = fit(ad, Xm, None, glmb, **kw4)
+    if st.error or len(st.lmdas) != 50:
+        fail(f"cox breslow: error {st.error!r}, {len(st.lmdas)} lambdas")
+    kkt = glm_dense_kkt("cox breslow", X, st,
+                           glm_resid("cox", (stop, status, "breslow")), *ones)
+    cox_gradient_check("cox breslow", glmb, X, st, stop, status, "breslow")
+    phase("cox", f"Breslow ties: {len(st.lmdas)} lambdas, wall {wall:.3f} s "
+          f"(one fit), {kkt_words(kkt)}; {irls_line(st)} | {card}")
+    return out
+
+
+def glm_cuda_vs_cpu_phase(ad, tk, pg):
+    """G7: ``data.dense(2000, 300, 60, glm=...)`` in float64 on "cuda" and
+    on "cpu" (the kernels' twins): binomial, poisson and Cox, and a grouped
+    binomial (K6 against its twin); lambdas to rtol 1e-10, beta within
+    1e-6."""
+    import numpy as np
+
+    cases = (("binomial", "binomial", False, 30),
+             ("poisson", "poisson", False, 30), ("cox", "cox", False, 20),
+             ("grouped binomial", "binomial", True, 30))
+    for what, glm, grouped, L in cases:
+        d = ad.data.dense(2000, 300, 60, glm=glm, seed=17)
+        kw = dict(lmda_path_size=L, intercept=glm != "cox")
+        if grouped:
+            kw.update(groups=d["groups"], penalty=d["penalty"])
+        zero_counts(tk.launches, pg.launches)
+        s_gpu = ad.grpnet(d["X"], d["glm"], device="cuda", **kw)
+        counts = {**tk.launches, **pg.launches}
+        t0 = time.perf_counter()
+        s_cpu = ad.grpnet(d["X"], d["glm"], device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        if s_gpu.error or s_cpu.error or len(s_gpu.lmdas) != len(s_cpu.lmdas):
+            fail(f"{what} cuda vs cpu: errors {s_gpu.error!r} "
+                 f"{s_cpu.error!r}, {len(s_gpu.lmdas)} vs "
+                 f"{len(s_cpu.lmdas)} lambdas")
+        lm_err = float(np.max(np.abs(s_gpu.lmdas / s_cpu.lmdas - 1)))
+        b_err = float(np.max(np.abs(s_gpu.betas.toarray()
+                                    - s_cpu.betas.toarray())))
+        kernel = "pin_group_solve" if grouped else "pin_lasso_solve"
+        phase("glm-cuda-vs-cpu", f"{what}: data.dense(2000, 300, 60, "
+              f"glm={glm!r}) f64, {L} lambdas: launches {counts}, max "
+              f"lambda rel diff {lm_err:.1e}, max beta diff {b_err:.3e}, "
+              f"IRLS iterations {sum(s_gpu.benchmark['irls_iters'])} (cpu "
+              f"{sum(s_cpu.benchmark['irls_iters'])}; the CPU fit "
+              f"{cpu_s:.1f} s)")
+        if counts[kernel] <= 0 or lm_err > 1e-10 or b_err > 1e-6:
+            fail(f"the card's {what} fit differs from the CPU path")
+
+
+# the case-control paths' depth: 50 lambdas to 5e-2 lambda_max, the
+# gaussian GWAS's.  There the weak per-SNP signal of sigmoid(z - 1) lets
+# the strong rule screen tens of thousands of the GWAS panel's SNPs, so
+# that every IRLS iteration refreshes a Gram tens of thousands wide (the
+# JAX package screens the same way)
+GWAS_GLM_MIN_RATIO = 5e-2
+
+
+def glm_gwas_phase(ad, card, tk, sk, Xm, io):
+    """G5: the case-control GWAS on phase 9's panel in device memory:
+    cases drawn from its 40 causal SNPs' standardized score, a logistic
+    path of 50 lambdas to ``GWAS_GLM_MIN_RATIO`` with the intercept and
+    the early exit (K3, K1 and K2): a profiled warm-up and three timed
+    fits, the KKT per lambda.  Returns the launch counts of the first
+    timed fit."""
+    import numpy as np
+
+    y = case_control(standardized(io.signal), seed=25)
+    glm = ad.glm.binomial(y)
+    kw = dict(lmda_path_size=50, min_ratio=GWAS_GLM_MIN_RATIO,
+              device="cuda")
+    st, walls, warm, counts, peak, prof = timed_fits(
+        ad, Xm, glm, (tk.launches, sk.launches), profiled=True, **kw)
+    if (st.error or not np.isfinite(st.devs).all()
+            or counts["snp_mul"] <= 0 or counts["pin_lasso_solve"] <= 0):
+        fail(f"case-control GWAS: error {st.error!r}, launches {counts}")
+    G, Bfull, _, R = snp_grad(Xm, y, st, resid_fn=glm_resid("logit", y))
+    n, p = Xm.shape
+    kkt = glm_kkt("case-control GWAS", G.T, Bfull, st, R, *singletons(p))
+    del G, Bfull, R
+    phase("gwas-logistic", f"n={n} p={p} f32, {y.mean():.3f} cases, "
+          + glm_cell_line("binomial(y), intercept, early exit", st, walls,
+                          warm, counts, peak, kkt, "profiled warm-up")
+          + f", K3 per lambda {counts['snp_mul'] / len(st.lmdas):.2f}, "
+          f"min_ratio {GWAS_GLM_MIN_RATIO}, active at the last lambda "
+          f"{st.betas[-1].nnz}, causal hits {causal_hits(io, st)}, devs[-1] "
+          f"{st.devs[-1]:.4f} | {card}")
+    phase("gwas-logistic", f"{irls_line(st)}; the warm-up's "
+          f"{glm_profile_line(prof)} | {card}")
+    return counts
+
+
+def causal_hits(io, state):
+    """The causal SNPs among the last lambda's nonzero coefficients."""
+    hits = set(state.betas[-1].tocoo().col.tolist()) & set(io.causal)
+    return f"{len(hits)}/{len(io.causal)}"
+
+
+# G6's wall budget: each of its fits stops at the first lambda that ends
+# more than this many seconds after the fit began.  The budget is an
+# ``exit_cond``, which the solver checks after every lambda and which
+# makes every chunk one lambda long, as in the JAX package.  With the
+# default chunks the streamed path to 5e-2 does not end within this
+# script's time limit: the third chunk's KKT pass unions its violators
+# at every speculative lambda into a screen of 47,307 SNPs, and the next
+# chunk fits 47 lambdas on that screen, each IRLS iteration refreshing a
+# Gram of 2 n S_cap^2 = 8.6e14 operations (S_cap 65,536)
+GLM_STREAM_BUDGET_S = 90.0
+
+
+def wall_budget(seconds):
+    """An ``exit_cond``: true once ``seconds`` have passed since its
+    making."""
+    t0 = time.perf_counter()
+    return lambda state: time.perf_counter() - t0 > seconds
+
+
+def glm_north_star_phase(ad, card, tk, sk, Xm, io):
+    """G6: the streamed case-control GWAS at the north star: cases drawn
+    from its 60 causal SNPs' standardized score, a logistic path of 50
+    lambdas to ``GWAS_GLM_MIN_RATIO`` (K5 in every pass, K1 and K2), a
+    profiled warm-up and a timed fit, each within ``GLM_STREAM_BUDGET_S``,
+    bit-equal on the lambdas both solved, and the KKT of the timed fit's
+    lambdas from one plain float64 pass.  Returns the launch counts of
+    the timed fit."""
+    import numpy as np
+    import torch
+
+    y = case_control(standardized(io.signal), seed=26)
+    glm = ad.glm.binomial(y)
+    kw = dict(lmda_path_size=50, min_ratio=GWAS_GLM_MIN_RATIO,
+              device="cuda")
+    kept = []
+    prof = profile_fit(ad, Xm, None, glm, keep=kept,
+                       exit_cond=wall_budget(GLM_STREAM_BUDGET_S), **kw)
+    if kept:
+        warm, st_w = (float("nan") if prof is None else prof[0]), kept[0]
+    else:
+        warm, st_w = fit(ad, Xm, None, glm,
+                         exit_cond=wall_budget(GLM_STREAM_BUDGET_S), **kw)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(tk.launches, sk.launches)
+    sweeps0 = Xm.sweeps
+    wall, st = fit(ad, Xm, None, glm,
+                   exit_cond=wall_budget(GLM_STREAM_BUDGET_S), **kw)
+    counts = {**tk.launches, **sk.launches}
+    sweeps = Xm.sweeps - sweeps0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (st.error or not len(st.lmdas) or not np.isfinite(st.devs).all()
+            or counts["snp_mul_many"] <= 0 or counts["snp_mul"] != 0
+            or counts["pin_lasso_solve"] <= 0):
+        fail(f"streamed case-control: error {st.error!r}, "
+             f"{len(st.lmdas)} lambdas, launches {counts}: K5 must carry "
+             "every pass, K3 none")
+    L = min(len(st.lmdas), len(st_w.lmdas))
+    if not (np.array_equal(st.lmdas[:L], st_w.lmdas[:L])
+            and np.array_equal(st.betas[:L].toarray(),
+                               st_w.betas[:L].toarray())):
+        fail("streamed case-control: the warm-up and the timed fit differ "
+             "on the lambdas both solved")
+    t0 = time.perf_counter()
+    G, Bfull, _, R = stream_grad(io, y, st, resid_fn=glm_resid("logit", y))
+    kkt = glm_kkt("streamed case-control", G.T, Bfull, st, R,
+                  *singletons(io.snps()))
+    kkt_s = time.perf_counter() - t0
+    del G, Bfull, R
+    lm_ratio = st.lmdas[-1] / st.lmdas[0]
+    phase("north-star-logistic", f"n={io.rows()} p={io.snps()} f32 "
+          f"streamed, {y.mean():.3f} cases, binomial(y), intercept, 50 "
+          f"lambdas to {GWAS_GLM_MIN_RATIO} within a wall budget of "
+          f"{GLM_STREAM_BUDGET_S:.0f} s a fit (chunks of one lambda): "
+          f"{len(st.lmdas)} lambdas solved (the warm-up {len(st_w.lmdas)}),"
+          f" the last at {lm_ratio:.4f} of the first, error {st.error!r}, "
+          f"wall {wall:.3f} s (profiled warm-up {warm:.3f} s), bit-equal on "
+          f"the {L} both solved, active at the last lambda "
+          f"{st.betas[-1].nnz}, causal hits {causal_hits(io, st)}, X.sweeps "
+          f"{sweeps}, streamed KKT passes {len(st.benchmark['kkt'])} "
+          f"({sum(st.benchmark['kkt']):.3f} s), peak screen "
+          f"{int(max(st.screen_sizes))}, pin solves' S in "
+          f"[{min(st.benchmark['pin_caps'])}, "
+          f"{max(st.benchmark['pin_caps'])}], launches {counts}, "
+          f"{kkt_words(kkt)} (one plain f64 pass, {kkt_s:.1f} s), peak "
+          f"device memory {peak:.2f} GiB | {card}")
+    phase("north-star-logistic", f"{irls_line(st)}; the warm-up's "
+          f"{glm_profile_line(prof)} | {card}")
+    return counts
 
 
 def main():
@@ -1702,7 +2371,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. the headline fit (warm-up, then the timed main-path fit)
-    X, y = headline_problem(40000, 2000, 60, seed=0)
+    X, y, signal5 = headline_problem(40000, 2000, 60, seed=0,
+                                     with_signal=True)
     Xm = ad.matrix.dense(X, device="cuda")
     kw = dict(lmda_path_size=100, min_ratio=1e-2, intercept=False,
               early_exit=False, device="cuda")
@@ -1936,6 +2606,13 @@ def main():
     if k6_7c <= 0 or lm_err > 1e-10 or b_err > 1e-6:
         fail("the card's grouped fit differs from the CPU path")
 
+    # G0-G4 and G7: GLMs by IRLS on dense inputs
+    gram_peak_phase(card)
+    glm_counts = glm_dense_phases(ad, card, tk, pg, X, signal5)
+    glm_cuda_vs_cpu_phase(ad, tk, pg)
+    del X, y, signal5
+    torch.cuda.empty_cache()
+
     # 8. K3 and K4 against their twins
     from adelie_tpu_torch.matrix import snp_kernels as sk
 
@@ -1999,6 +2676,8 @@ def main():
           f"{timing_line(snp_time['snp_mul'], 'snp_mul')}; launches x "
           f"kernel ms {k3_path_ms:.1f} ms, "
           f"{k3_path_ms / (wall9 * 1e3):.2f} of the path's wall | {card}")
+    # G5: the case-control GWAS on the same panel
+    glm_counts["gwas-logistic"] = glm_gwas_phase(ad, card, tk, sk, Xm9, io9)
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()
@@ -2047,7 +2726,7 @@ def main():
     if counts10g["snp_mul_no_na"] <= 0 or counts10g["pin_group_solve"] <= 0:
         fail(f"grouped phased fit: launches {counts10g}; K4 and K6 must "
              "carry it")
-    G10, B10, lm10 = snp_grad(Xm10, y10, st10g)
+    G10, B10, lm10, _ = snp_grad(Xm10, y10, st10g)
     kkt10g = group_kkt_check("grouped phased fit", G10.T.contiguous(), B10,
                              lm10.cpu().numpy(), groups10,
                              np.full(PHASED_S, PHASED_A),
@@ -2288,7 +2967,11 @@ def main():
     phase("K5", f"launches x C={C14} ms {counts14['snp_mul_many'] * r['ms']:.1f}"
           f" ms (an upper bound: set-up and dry-fit passes run C <= 2) | "
           f"{card}")
-    del tile14, Xm14, io14, st14
+    del tile14
+    # G6: the streamed case-control GWAS on the same panel
+    glm_counts["north-star-logistic"] = glm_north_star_phase(
+        ad, card, tk, sk, Xm14, io14)
+    del Xm14, io14, st14
     torch.cuda.empty_cache()
 
     # 15. the kernels' line
@@ -2347,6 +3030,15 @@ def main():
     # K5 at the chunk pass's C, and its times at every C measured
     kernels["kernels"][-1].update(
         {k: snp_time["snp_mul_many"][k] for k in ("C", "ms_by_C")})
+    # each kernel's launches on every path that ran it
+    paths = {"headline": counts_5, "headline-grouped": counts5g,
+             "big-S": counts_6, "gwas": counts9, "phased": counts10,
+             "phased-grouped": counts10g, "north-star": counts14,
+             **glm_counts}
+    for k in kernels["kernels"]:
+        k["launches_by_path"] = {path: c[k["name"]]
+                                 for path, c in paths.items()
+                                 if c.get(k["name"], 0) > 0}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

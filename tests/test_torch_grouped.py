@@ -27,8 +27,8 @@ from adelie_tpu_torch.configs import set_configs
 from adelie_tpu_torch.solver import pin as tpin
 from adelie_tpu_torch.solver import pin_group_kernels as pg
 from adelie_tpu_torch.solver import pin_kernels as tk
-from adelie_tpu_torch.solver.state_core import (abs_grad_kernel, group_cols,
-                                                group_sum)
+from adelie_tpu_torch.solver.state_core import abs_grad_kernel
+from adelie_tpu_torch.utils.groups import GroupIndex, group_sum
 from adelie_tpu_torch.state import state_from_numpy
 from test_torch_bcd import full_walk
 from test_torch_grpnet import _WS_KEYS, _assert_same_path
@@ -52,8 +52,8 @@ def test_dense_generator_matches_jax(equal_groups):
     for key in ("groups", "group_sizes", "penalty"):
         np.testing.assert_array_equal(dt[key], dj[key])
     assert dt["X"].flags.f_contiguous
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        ta.data.dense(50, 40, 12, glm="binomial")
+    with pytest.raises(NotImplementedError, match="multi-response"):
+        ta.data.dense(50, 40, 12, K=2, glm="multinomial")
 
 
 # --------------------------------------------------------------------------- #
@@ -191,8 +191,9 @@ def test_group_norms_equal_a_numpy_sum_bit_for_bit(dtype):
         .astype(dtype)
     cols_padded = np.array([6, 7, 8, -1, 22, 23, 24, 25, 26, -1], np.int64)
     beta_padded = rng.standard_normal(10).astype(dtype)
-    cols = t(group_cols(groups, sizes, p))
-    assert cols.shape == (len(groups), 8)
+    cols = GroupIndex(groups, sizes, p, "cpu")
+    # sizes 1, 5, 3, 1, 7, 5, 8, 7: buckets of 1, 4 and 8 columns
+    assert [b.shape for b in cols.blocks] == [(2, 1), (1, 4), (5, 8)]
     l2 = 0.7
     got = abs_grad_kernel(t(grad), t(cols_padded), t(beta_padded),
                           t(pen_cols), cols, l2).numpy()
@@ -208,7 +209,7 @@ def test_group_norms_equal_a_numpy_sum_bit_for_bit(dtype):
     want2 = np.stack([[_fold(M[g:g + q, c]) for c in range(3)]
                       for g, q in zip(groups, sizes)])
     np.testing.assert_array_equal(got2, want2)
-    ones = t(group_cols(np.arange(p), np.ones(p, int), p))
+    ones = GroupIndex(np.arange(p), np.ones(p, int), p, "cpu")
     assert torch.equal(group_sum(t(M), ones), t(M))
 
 

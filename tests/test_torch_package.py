@@ -209,7 +209,8 @@ def test_matmul_precision_maps_to_tf32(name, tf32):
 
 def test_unported_inputs_raise():
     """Groups of size > 1 are ported: ``groups=[0, 2, 4]`` fits as the JAX
-    package does (the bars of test_torch_grpnet.py).  Other GLMs raise."""
+    package does (the bars of test_torch_grpnet.py).  Multi-response GLMs
+    raise."""
     import adelie_tpu as ja
     from test_torch_grpnet import _assert_same_path
 
@@ -221,8 +222,8 @@ def test_unported_inputs_raise():
     ts = ta.grpnet(X, ta.glm.gaussian(y), device="cpu", **kw)
     _assert_same_path(js, ts)
     glm = ta.glm.gaussian(y)
-    glm.name = "binomial"
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    glm.is_multi = True
+    with pytest.raises(NotImplementedError, match="multi-response"):
         ta.grpnet(X, glm, device="cpu")
 
 
@@ -245,8 +246,9 @@ def test_dense_matrix_products_match_numpy():
 
 def test_grpnet_accepts_the_jax_keywords():
     """``n_threads``, ``irls_*`` and ``newton_*`` are accepted and change
-    nothing here (GLMs are not ported, and groups of size 1 take no Newton
-    step); ``check_state=True`` is not ported and raises."""
+    nothing here (a gaussian fit in covariance form runs no IRLS, and
+    groups of size 1 take no Newton step); ``check_state=True`` is not
+    ported and raises."""
     rng = np.random.default_rng(1)
     X = rng.standard_normal((30, 5))
     y = X[:, 0] + 0.1 * rng.standard_normal(30)
@@ -257,7 +259,7 @@ def test_grpnet_accepts_the_jax_keywords():
                   check_state=False, **kw)
     assert a.error == b.error == ""
     np.testing.assert_array_equal(a.betas.toarray(), b.betas.toarray())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="model-selection layer"):
         ta.grpnet(X, ta.glm.gaussian(y), check_state=True, **kw)
 
 

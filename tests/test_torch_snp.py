@@ -231,8 +231,8 @@ def test_simulators_give_the_jax_packages_arrays():
     t = ta.data.snp_phased_ancestry(40, 6, 3, seed=8)
     for k in ("X", "ancestries", "y", "groups", "group_sizes", "penalty"):
         np.testing.assert_array_equal(t[k], j[k])
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        ta.data.snp_unphased(10, 3, glm="binomial")
+    with pytest.raises(NotImplementedError, match="multi-response"):
+        ta.data.snp_unphased(10, 3, K=2, glm="multinomial")
 
 
 # --------------------------------------------------------------------------- #

@@ -9,7 +9,9 @@ speculative union run.  Bars: float64 products at atol 1e-12; float64 paths
 at 1e-9 in coefficients, intercepts, deviances and lambdas (the bar of
 ``tests/test_snp_stream.py``), with the same number of streamed passes;
 float32 paths at 5e-6 (its ``test_streamed_f32_matches_inhbm``).  Groups are
-of size 1 (ROADMAP.md queue 3).  The port runs K5's twin here.
+of size 1 here (``tests/test_torch_grouped.py`` holds the grouped streamed
+path, ``tests/test_torch_glm.py`` the streamed binomial one).  The port runs
+K5's twin here.
 """
 
 import numpy as np
