@@ -9,7 +9,9 @@ updates are ``bcd``'s), built from ``csrc/`` at the first CUDA call.  On
 CPU tensors the kernels' plain PyTorch twins run instead.  The port so far
 covers ``grpnet`` with groups of any size for the single-response GLMs
 (the gaussian in covariance form; binomial, poisson and Cox by IRLS,
-``glm``) on a dense matrix or on a packed SNP matrix (``io``,
+``glm``) and the multi-response ones (``glm.multigaussian``,
+``glm.multinomial``, fitted on ``matrix.kronecker_eye``) on a dense matrix
+or on a packed SNP matrix (``io``,
 ``matrix.snp_unphased``, ``matrix.snp_phased_ancestry``), in device
 memory or, for a panel larger
 than the card, streamed from host memory (``snp_unphased(streaming=True)``);

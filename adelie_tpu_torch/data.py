@@ -1,11 +1,12 @@
 """Synthetic data generators (reference adelie/data.py:84,222,362).
 
-Counterpart of ``dense`` and the SNP generators of ``adelie_tpu/data.py``,
-for the single-response GLMs (gaussian, binomial, poisson, cox): the same
-``numpy.random.default_rng`` calls in the same order, so one seed gives the
-same arrays in both packages (``X``, the response, ``groups`` and
-``penalty``; unphased, ``beta``; phased, ``ancestries``).  ``K > 1`` and
-the multi-response GLMs raise (ROADMAP.md: multi-response).
+Counterpart of ``dense`` and the SNP generators of ``adelie_tpu/data.py``:
+the same ``numpy.random.default_rng`` calls in the same order, so one seed
+gives the same arrays in both packages (``X``, the response, ``groups``
+and ``penalty``; unphased, ``beta``; phased, ``ancestries``), for the
+single-response GLMs (gaussian, binomial, poisson, cox; ``K = 1``) and the
+multi-response ones (multigaussian, multinomial; ``K`` responses or
+classes).
 """
 
 import numpy as np
@@ -15,20 +16,21 @@ from . import glm as glm_mod
 __all__ = ["dense", "snp_phased_ancestry", "snp_unphased"]
 
 _GLMS = ("gaussian", "binomial", "poisson", "cox")
+_MULTI = ("multigaussian", "multinomial")
 
 
 def _check_glm(glm, K):
-    if K != 1 or glm in ("multigaussian", "multinomial"):
-        raise NotImplementedError(
-            f"simulated {glm!r} responses with K={K} are not ported yet "
-            "(ROADMAP.md: multi-response)")
-    if glm not in _GLMS:
+    if glm not in _GLMS + _MULTI:
         raise ValueError(f"Unknown glm: {glm}")
+    if K != 1 and glm not in _MULTI:
+        raise ValueError(f"K={K} responses need a multi-response glm "
+                         f"({' or '.join(_MULTI)}), not {glm!r}")
 
 
 def _sample_response(glm_name, eta, snr, rng, dtype=None):
-    """The response of ``glm_name`` at the linear predictor ``eta`` (n, 1)
-    or (n,), as ``adelie_tpu/data.py:_sample_response`` draws it."""
+    """The response of ``glm_name`` at the linear predictor ``eta`` ((n, 1)
+    or (n,); (n, K) for a multi-response GLM), as
+    ``adelie_tpu/data.py:_sample_response`` draws it."""
     signal_var = float(np.var(eta))
     noise_scale = np.sqrt(signal_var / snr) if signal_var > 0 else 1.0
     if glm_name == "gaussian":
@@ -43,6 +45,15 @@ def _sample_response(glm_name, eta, snr, rng, dtype=None):
         lam = np.exp(np.clip(eta.ravel(), -30, 5))
         y = rng.poisson(lam).astype(float)
         return glm_mod.poisson(y, dtype=dtype)
+    if glm_name == "multigaussian":
+        y = eta + noise_scale * rng.standard_normal(eta.shape)
+        return glm_mod.multigaussian(y, dtype=dtype)
+    if glm_name == "multinomial":
+        z = eta - eta.max(axis=1, keepdims=True)
+        prob = np.exp(z)
+        prob /= prob.sum(axis=1, keepdims=True)
+        idx = np.array([rng.choice(eta.shape[1], p=pi) for pi in prob])
+        return glm_mod.multinomial(np.eye(eta.shape[1])[idx], dtype=dtype)
     # cox
     n = eta.shape[0]
     u = rng.uniform(size=n)
@@ -66,7 +77,9 @@ def _response(glm, eta, snr, rng, n, dtype, cast_y):
     or ``_sample_response``."""
     if glm == "gaussian":
         return _gaussian(eta, snr, rng, n, dtype, cast_y)
-    glm_obj = _sample_response(glm, eta[:, 0], snr, rng, dtype=dtype)
+    K = eta.shape[1]
+    glm_obj = _sample_response(glm, eta if K > 1 else eta[:, 0], snr, rng,
+                               dtype=dtype)
     return glm_obj.y.numpy(), glm_obj
 
 
@@ -99,7 +112,8 @@ def dense(
     boundaries unless ``equal_groups`` (then ``p // G`` columns a group,
     the last group taking the rest), a sparse coefficient vector and a
     response of the GLM ``glm`` ("gaussian", "binomial", "poisson" or
-    "cox") with signal-to-noise ratio ``snr``."""
+    "cox"; with ``K`` > 1, "multigaussian" or "multinomial") with
+    signal-to-noise ratio ``snr``."""
     _check_glm(glm, K)
     rng = np.random.default_rng(seed)
     groups, group_sizes = _make_groups(p, G, equal_groups, rng)
@@ -117,7 +131,9 @@ def dense(
     beta = rng.standard_normal((p, K))
     zero_idx = rng.choice(p, int(sparsity * p), replace=False)
     beta[zero_idx] = 0.0
-    glm_obj = _sample_response(glm, (X @ beta)[:, :1], snr, rng)
+    eta = X @ beta
+    glm_obj = _sample_response(glm, eta if glm in _MULTI else eta[:, :1],
+                               snr, rng)
     return {
         "X": np.asfortranarray(X),
         "glm": glm_obj,
@@ -176,7 +192,7 @@ def snp_unphased(
         "X": X,
         "glm": glm_obj,
         "y": y,
-        "beta": beta.ravel(),
+        "beta": beta.ravel() if K == 1 else beta,
         "groups": groups,
         "group_sizes": group_sizes,
         "penalty": penalty,

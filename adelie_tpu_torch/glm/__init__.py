@@ -1,4 +1,5 @@
-"""GLM loss classes: gaussian, binomial (logit and probit), poisson, cox.
+"""GLM loss classes: gaussian, binomial (logit and probit), poisson, cox,
+and the multi-response multigaussian and multinomial (``glm/multi.py``).
 
 Counterpart of ``adelie_tpu/glm/__init__.py:40-332``.  Each class provides
 plain tensor methods (reference ``glm_base.hpp:19-93``):
@@ -14,9 +15,9 @@ plain tensor methods (reference ``glm_base.hpp:19-93``):
 ``y`` and the weights are kept as CPU tensors of the GLM's dtype; weights
 are normalised to sum to one at construction (reference glm.py factories).
 The solver takes a copy on its device and in its dtype (``to``).  Users
-can define a GLM by subclassing ``GlmBase`` (alias ``glm_base``).
-Multi-response GLMs (``multigaussian``, ``multinomial``) are not ported
-yet (ROADMAP.md: multi-response).
+can define a GLM by subclassing ``GlmBase`` (alias ``glm_base``), or a
+multi-response one, whose ``y`` and ``eta`` are (n, K), by subclassing
+``GlmMultiBase`` (alias ``multiglm_base``).
 """
 
 import copy
@@ -27,7 +28,9 @@ import torch
 from ..configs import configs
 from ..utils import TORCH_DTYPE, types
 
-__all__ = ["GlmBase", "glm_base", "gaussian", "binomial", "poisson", "cox"]
+__all__ = ["GlmBase", "GlmMultiBase", "glm_base", "multiglm_base",
+           "gaussian", "binomial", "poisson", "cox", "multigaussian",
+           "multinomial"]
 
 
 def _normalize_weights(n, weights, dtype):
@@ -104,8 +107,23 @@ class GlmBase:
         return type(self)(self.y.cpu().numpy(), np.asarray(weights))
 
 
-# the reference's name of the user-extension base (reference glm.py:33)
+class GlmMultiBase(GlmBase):
+    """Multi-response GLM base (reference glm_multibase.hpp): ``y`` is
+    (n, K), and so are eta, the gradient and the Hessian; the weights are
+    (n,), one an observation."""
+
+    is_multi = True
+
+    def __init__(self, name, y, weights=None, dtype=None):
+        if np.ndim(y) != 2:
+            raise ValueError(f"y must be (n, K), got shape {np.shape(y)}")
+        super().__init__(name, y, weights, dtype)
+
+
+# the reference's names of the user-extension bases (reference glm.py:33,
+# 58)
 glm_base = GlmBase
+multiglm_base = GlmMultiBase
 
 
 class GlmGaussian(GlmBase):
@@ -295,3 +313,20 @@ def cox(start=None, stop=None, status=None, strata=None, weights=None, *,
         start = np.full(np.asarray(stop).shape, -np.inf)
     return GlmCox(start=start, stop=stop, status=status, strata=strata,
                   weights=weights, tie_method=tie_method, dtype=dtype)
+
+
+def multigaussian(y, weights=None, *, dtype=None, opt: bool = True,
+                  **kwargs):
+    """Multi-response gaussian over the K columns of ``y`` (n, K)
+    (reference glm.py:456).  ``opt=False`` fits it by IRLS."""
+    from .multi import GlmMultiGaussian
+
+    return GlmMultiGaussian(y, weights, dtype, opt=opt)
+
+
+def multinomial(y, weights=None, *, dtype=None, **kwargs):
+    """Multinomial (softmax) GLM over the K >= 2 classes of ``y`` (n, K),
+    one-hot (reference glm.py:541)."""
+    from .multi import GlmMultinomial
+
+    return GlmMultinomial(y, weights, dtype)

@@ -1,0 +1,179 @@
+"""Composition wrappers: column concatenation and ``X (x) I_K``.
+
+Counterpart of ``MatrixNaiveCConcatenate`` and ``MatrixNaiveKroneckerEye``
+in ``adelie_tpu/matrix/wrappers.py`` (reference
+matrix_naive_concatenate.{hpp,ipp}, matrix_naive_kronecker_eye.{hpp,ipp}).
+Each wrapper composes its children's products and lives on their device;
+children on different devices, or of different dtypes, raise.
+
+The multi-response problem runs on ``kronecker_eye(concatenate([1, X]),
+K)`` (``solver/multi.py``).  Its screen block never gathers the (n K, m)
+columns of the Kronecker: the screen cache keeps the child's columns and
+forms one Gram a class (``solver/state_core.py``,
+``KroneckerScreenCache``).  ``gather`` here serves ``to_dense`` and the
+tests.
+"""
+
+import numpy as np
+import torch
+
+from .base import MatrixNaiveBase
+
+__all__ = ["MatrixNaiveCConcatenate", "MatrixNaiveKroneckerEye"]
+
+
+def _common(mats):
+    """The children's (dtype, torch dtype, device); a mix raises."""
+    devices = {m.device for m in mats}
+    if len(devices) > 1:
+        raise ValueError(f"matrices on different devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    dtypes = {np.dtype(m.dtype) for m in mats}
+    if len(dtypes) > 1:
+        raise ValueError(f"matrices of different dtypes: "
+                         f"{sorted(str(d) for d in dtypes)}")
+    m = mats[0]
+    return np.dtype(m.dtype), m.torch_dtype, m.device
+
+
+def _index_np(indices):
+    if isinstance(indices, torch.Tensor):
+        indices = indices.cpu().numpy()
+    return np.asarray(indices, np.int64)
+
+
+class MatrixNaiveCConcatenate(MatrixNaiveBase):
+    """The columns of its children side by side (reference
+    matrix_naive_concatenate, the column variant)."""
+
+    def __init__(self, mats):
+        mats = list(mats)
+        if not mats:
+            raise ValueError("concatenate needs at least one matrix")
+        self._children = mats
+        self.dtype, self.torch_dtype, self.device = _common(mats)
+        self._rows = mats[0].rows()
+        if any(m.rows() != self._rows for m in mats):
+            raise ValueError(f"matrices of different row counts: "
+                             f"{[m.rows() for m in mats]}")
+        self._offsets = np.concatenate(
+            [[0], np.cumsum([m.cols() for m in mats])]).astype(np.int64)
+        self._cols = int(self._offsets[-1])
+
+    @property
+    def is_streaming(self):
+        return any(getattr(m, "is_streaming", False) for m in self._children)
+
+    @property
+    def sweeps(self):
+        """Passes over host memory: those of its streamed children."""
+        return max((getattr(m, "sweeps", 0) for m in self._children),
+                   default=0)
+
+    def mul(self, v, w):
+        return torch.cat([m.mul(v, w) for m in self._children])
+
+    def mul_many(self, U):
+        return torch.cat([m.mul_many(U) for m in self._children], dim=0)
+
+    def gather(self, indices):
+        idx = _index_np(indices)
+        out = torch.empty((self._rows, len(idx)), dtype=self.torch_dtype,
+                          device=self.device)
+        child_of = np.searchsorted(self._offsets, idx, side="right") - 1
+        for c in np.unique(child_of):
+            pos = np.flatnonzero(child_of == c)
+            local = torch.as_tensor(idx[pos] - self._offsets[c],
+                                    device=self.device)
+            out[:, torch.as_tensor(pos, device=self.device)] = \
+                self._children[c].gather(local)
+        return out
+
+    def tmul(self, beta):
+        beta = torch.as_tensor(beta, dtype=self.torch_dtype,
+                               device=self.device)
+        out = None
+        for c, m in enumerate(self._children):
+            term = m.tmul(beta[self._offsets[c]:self._offsets[c + 1]])
+            out = term if out is None else out + term
+        return out
+
+    def sq_mul(self, w):
+        return torch.cat([m.sq_mul(w) for m in self._children])
+
+
+class MatrixNaiveKroneckerEye(MatrixNaiveBase):
+    """``X (x) I_K``, of shape (n K, p K): column ``q K + k`` is column q
+    of the child in rows ``i K + k`` (reference
+    matrix_naive_kronecker_eye).  The (n K,) operands are (n, K) blocks,
+    one column a class, and every product is the child's on them."""
+
+    def __init__(self, mat, K: int):
+        if int(K) < 1:
+            raise ValueError(f"K must be >= 1, got {K}")
+        self._child = mat
+        self._K = int(K)
+        self.dtype, self.torch_dtype, self.device = _common([mat])
+        self._rows = mat.rows() * self._K
+        self._cols = mat.cols() * self._K
+
+    @property
+    def K(self):
+        return self._K
+
+    @property
+    def child(self):
+        return self._child
+
+    @property
+    def is_streaming(self):
+        return bool(getattr(self._child, "is_streaming", False))
+
+    @property
+    def sweeps(self):
+        return getattr(self._child, "sweeps", 0)
+
+    def _like(self, v):
+        return torch.as_tensor(v, dtype=self.torch_dtype, device=self.device)
+
+    def mul(self, v, w):
+        """One child ``mul_many`` over the K classes of ``v * w``: one GEMM
+        on a dense child, K launches of its kernel on an SNP matrix in
+        device memory, one pass at C = K on a streamed one."""
+        n, K = self._child.rows(), self._K
+        vw = (self._like(v) * self._like(w)).reshape(n, K)
+        return self._child.mul_many(vw.T.contiguous()).reshape(-1)
+
+    def mul_many(self, U):
+        """One child ``mul_many`` over C K rows: row ``c K + k`` holds class
+        k of residual c, so a streamed child serves every class of a chunk
+        of lambdas in one pass.  Returns (p K, C)."""
+        K, n, p = self._K, self._child.rows(), self._child.cols()
+        U = self._like(U)
+        C = U.shape[0]
+        V = U.reshape(C, n, K).transpose(1, 2).reshape(C * K, n)
+        base = self._child.mul_many(V)                       # (p, C K)
+        return base.reshape(p, C, K).transpose(1, 2).reshape(p * K, C)
+
+    def gather(self, indices):
+        """The (n K, m) columns ``indices``, K - 1 of every K rows zero."""
+        idx = _index_np(indices)
+        K = self._K
+        base = self._child.gather(
+            torch.as_tensor(idx // K, device=self.device))   # (n, m)
+        n, m = base.shape
+        onehot = torch.zeros((K, m), dtype=self.torch_dtype,
+                             device=self.device)
+        onehot[torch.as_tensor(idx % K, device=self.device),
+               torch.arange(m, device=self.device)] = 1
+        return (base[:, None, :] * onehot[None, :, :]).reshape(n * K, m)
+
+    def tmul(self, beta):
+        p, K = self._child.cols(), self._K
+        return self._child.tmul(self._like(beta).reshape(p, K)).reshape(-1)
+
+    def sq_mul(self, w):
+        n, K = self._child.rows(), self._K
+        W = self._like(w).reshape(n, K)
+        return torch.stack([self._child.sq_mul(W[:, k].contiguous())
+                            for k in range(K)], dim=1).reshape(-1)

@@ -1,12 +1,14 @@
-"""Solver entry point: ``grpnet``, single-response GLMs.
+"""Solver entry point: ``grpnet``.
 
 Counterpart of ``adelie_tpu/solver/__init__.py``.  The gaussian loss with
 ``opt=True`` runs in covariance form: ``GaussianNaiveDriver`` on a matrix
 in device memory, ``StreamedGaussianDriver`` on a host-streamed SNP
 matrix.  Every other GLM (binomial, poisson, cox, a user's ``GlmBase``, the
 gaussian with ``opt=False``) runs the IRLS path: ``GlmNaiveDriver`` or
-``StreamedGlmDriver``.  Multi-response GLMs and constraints are later
-slices of ROADMAP.md and raise ``NotImplementedError``.
+``StreamedGlmDriver``.  A multi-response GLM (``multigaussian``,
+``multinomial``) becomes one flattened problem on ``X (x) I_K``
+(``solver/multi.py``) that the same drivers run.  Constraints are a later
+slice of ROADMAP.md and raise ``NotImplementedError``.
 """
 
 import traceback
@@ -22,6 +24,7 @@ from ..logger import logger
 from ..utils import types
 from .gaussian import GaussianNaiveDriver, GaussianNaiveState
 from .glm_driver import GlmNaiveDriver, GlmNaiveState
+from .multi import build_multi_problem, finalize_multi
 from .streamed import StreamedGaussianDriver, StreamedGlmDriver
 
 __all__ = ["grpnet", "finalize_state"]
@@ -79,7 +82,10 @@ def grpnet(
     (1-alpha)/2 ||b_g||_2^2)  over a decreasing lambda path with BASIL
     screening, for the loss of ``glm``: gaussian in covariance form, any
     other single-response GLM by IRLS (``irls_max_iters`` iterations to
-    ``irls_tol`` a lambda).
+    ``irls_tol`` a lambda).  A multi-response GLM (``y`` (n, K)) fits one
+    coefficient a class for every column, a group of g columns penalized as
+    one group of g K coefficients, and K intercepts: ``betas`` (L, p K),
+    column ``j K + k`` for class k, and ``intercepts`` (L, K).
 
     ``device``: where every tensor of the fit lives; ``None`` means the
     device of a matrix ``X`` or, for an array, ``"cuda"``, which raises
@@ -100,21 +106,25 @@ def grpnet(
             "check_state=True is not ported yet (ROADMAP.md: the "
             "model-selection layer)")
     screen_rule = types.screen_rule(screen_rule)
-    if glm.is_multi:
-        raise NotImplementedError(
-            "multi-response GLMs are not ported yet (ROADMAP.md: "
-            "multi-response)")
     if constraints is not None and any(c is not None for c in constraints):
         raise NotImplementedError(
             "constraints are not ported yet (ROADMAP.md: constraints)")
-    is_gaussian_opt = glm.name == "gaussian" and glm.opt
+    is_gaussian_opt = glm.name in ("gaussian", "multigaussian") and glm.opt
 
     X = _as_matrix(X, device)
+    if (not glm.is_multi and intercept
+            and isinstance(X, matrix_mod.MatrixNaiveKroneckerEye)):
+        # its screen block forms no centered Gram: the multi-response
+        # problem carries its intercepts as columns
+        raise NotImplementedError(
+            "a single-response fit on a Kronecker matrix "
+            "(matrix.kronecker_eye) with intercept=True is not ported: "
+            "pass intercept=False with a column of ones in X, or fit a "
+            "multi-response GLM")
     streaming = getattr(X, "is_streaming", False)
     dev = X.device
     dtype = X.dtype
-    tdtype = X.torch_dtype
-    n, p = X.rows(), X.cols()
+    p = X.cols()
 
     y_arr = glm.y.cpu().numpy()
     if offsets is None:
@@ -130,16 +140,9 @@ def grpnet(
     if groups is None:
         groups = np.arange(p, dtype=int)
     groups = np.asarray(groups, int)
-    group_sizes = np.diff(np.concatenate([groups, [p]])).astype(int)
-    G = len(groups)
-    if penalty is None:
-        penalty = np.sqrt(group_sizes).astype(float)
-    else:
-        penalty = np.asarray(penalty, float)
 
     common = dict(
-        X=X, groups=groups, group_sizes=group_sizes, alpha=float(alpha),
-        penalty=penalty, intercept=bool(intercept), dtype=dtype, n=n, p=p,
+        alpha=float(alpha), intercept=bool(intercept), dtype=dtype,
         device=dev, max_iters=int(max_iters), tol=float(tol),
         newton_tol=float(newton_tol), newton_max_iters=int(newton_max_iters),
         adev_tol=float(adev_tol), ddev_tol=float(ddev_tol),
@@ -154,6 +157,49 @@ def grpnet(
         screen_rule=screen_rule, lmda_path=lmda_path,
         setup_lmda_path=lmda_path is None,
     )
+
+    if glm.is_multi:
+        state, driver = build_multi_problem(
+            X, glm, groups, penalty, offsets_np, warm_start, common,
+            is_gaussian_opt, irls_max_iters, irls_tol)
+    else:
+        state, driver = _single_problem(
+            X, glm, groups, penalty, y_arr, offsets_np, warm_start,
+            streaming, common, is_gaussian_opt, irls_max_iters, irls_tol)
+
+    if warm_start is not None:
+        # restore the KKT invariance quantities carried by the warm start
+        state.abs_grad = getattr(warm_start, "abs_grad", None)
+        if state.abs_grad is None and np.isfinite(state.lmda):
+            state.update_abs_grad(state.lmda)
+        elif state.abs_grad is not None:
+            state.abs_grad = np.asarray(state.abs_grad)
+
+    try:
+        driver.solve_path(progress_bar=progress_bar, exit_cond=exit_cond)
+    except Exception as exc:  # return a valid partial state (py_state.cpp:83-89)
+        state.error = str(exc)
+        logger.error(f"solver: {exc}\n{traceback.format_exc()}")
+
+    state = finalize_state(state)
+    return finalize_multi(state) if glm.is_multi else state
+
+
+def _single_problem(X, glm, groups, penalty, y_arr, offsets_np, warm_start,
+                    streaming, common, is_gaussian_opt, irls_max_iters,
+                    irls_tol):
+    """A single-response problem's state and driver."""
+    n, p = X.rows(), X.cols()
+    dtype = np.dtype(X.dtype)
+    alpha = common["alpha"]
+    group_sizes = np.diff(np.concatenate([groups, [p]])).astype(int)
+    G = len(groups)
+    if penalty is None:
+        penalty = np.sqrt(group_sizes).astype(float)
+    else:
+        penalty = np.asarray(penalty, float)
+    common.update(X=X, groups=groups, group_sizes=group_sizes,
+                  penalty=penalty, n=n, p=p)
 
     if warm_start is None:
         if p + int(group_sizes.max()) <= configs.screen_all_max:
@@ -192,7 +238,7 @@ def grpnet(
         lmda=lmda, lmda_max=lmda_max, setup_lmda_max=lmda_max is None,
     )
 
-    like = dict(dtype=tdtype, device=dev)
+    like = dict(dtype=X.torch_dtype, device=X.device)
     if is_gaussian_opt:
         state = _gaussian_state(X, glm, y_arr, offsets_np, warm_start,
                                 streaming, like, common)
@@ -202,22 +248,7 @@ def grpnet(
         state = _glm_state(X, glm, offsets_np, warm_start, like, common,
                            irls_max_iters, irls_tol)
         driver = (StreamedGlmDriver if streaming else GlmNaiveDriver)(state)
-
-    if warm_start is not None:
-        # restore the KKT invariance quantities carried by the warm start
-        state.abs_grad = getattr(warm_start, "abs_grad", None)
-        if state.abs_grad is None and np.isfinite(state.lmda):
-            state.update_abs_grad(state.lmda)
-        elif state.abs_grad is not None:
-            state.abs_grad = np.asarray(state.abs_grad)
-
-    try:
-        driver.solve_path(progress_bar=progress_bar, exit_cond=exit_cond)
-    except Exception as exc:  # return a valid partial state (py_state.cpp:83-89)
-        state.error = str(exc)
-        logger.error(f"solver: {exc}\n{traceback.format_exc()}")
-
-    return finalize_state(state)
+    return state, driver
 
 
 def _gaussian_state(X, glm, y_arr, offsets_np, warm_start, streaming, like,

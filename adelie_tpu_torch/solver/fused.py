@@ -39,10 +39,9 @@ class ScreenFit:
 def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
                max_iters, intercept, dbeta_tol, newton_tol, newton_max_iters):
     """Screen gradient, pin solve and residual update at one lambda."""
-    Xs = cache.Xs
     with matmul_precision():
         resid_sum0 = w @ resid
-        grad_s = (w * resid) @ Xs
+        grad_s = cache.screen_grad(w * resid)
     if intercept:
         grad_s = grad_s - cache.means_s * resid_sum0
 
@@ -53,7 +52,7 @@ def screen_fit(cache, beta, active, resid, rsq, w, lmda, alpha, tol,
     )
 
     with matmul_precision():
-        resid_n = resid - Xs @ (beta_n - beta)
+        resid_n = resid - cache.screen_apply(beta_n - beta)
         resid_sum = w @ resid_n
     return ScreenFit(beta_n, active_n, resid_n, resid_sum, rsq_n, iters, done)
 

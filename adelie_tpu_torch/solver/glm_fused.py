@@ -79,7 +79,6 @@ def irls_fit(cache, glm, carry: IrlsCarry, offsets, lmda, *, alpha, tol_base,
     ``pin_caps`` gets each pin solve's screen capacity."""
     hmin = hessian_min(dt)
     grouped = cache.qmax > 1
-    Xs = cache.Xs
     irls_tol_d = float(dt(irls_tol))
     lmda_d, tol_base_d = dt(lmda), dt(tol_base)
     zero = dt(0.0)
@@ -104,7 +103,7 @@ def irls_fit(cache, glm, carry: IrlsCarry, offsets, lmda, *, alpha, tol_base,
         # solver_glm_naive.hpp:361-385)
         cache.rebuild_weighted(irls_w, intercept)
         with matmul_precision():
-            grad_s = (irls_w * irls_resid) @ Xs
+            grad_s = cache.screen_grad(irls_w * irls_resid)
         if intercept:
             grad_s = grad_s - cache.means_s * resid_sum
         beta_n, _, active_n, info = pin_cov_launch(
@@ -115,7 +114,7 @@ def irls_fit(cache, glm, carry: IrlsCarry, offsets, lmda, *, alpha, tol_base,
         pin_caps.append(cache.S_cap)
 
         with matmul_precision():
-            irls_resid = irls_resid - Xs @ (beta_n - beta)
+            irls_resid = irls_resid - cache.screen_apply(beta_n - beta)
             resid_sum_n = irls_w @ irls_resid
         if intercept:
             b0_n = y_mean + resid_sum_n

@@ -12,6 +12,10 @@ diagonal block of ``A`` (through the block's eigendecomposition, one
 batched ``eigh`` a screen) and, after it, ``g -= A[:, b:b+q] dbeta``.
 
 Each solve is one kernel launch and one host copy of its ``info`` after it.
+For ``X (x) I_K`` (the multi-response problem) the Gram is formed one
+class at a time from the child's columns (``kron_gram``, ``kron_cross``)
+and scattered into the same slot layout.
+
 The dispatch depends on the screen's padded block width ``qmax`` and on S,
 never on the device: ``qmax == 1`` runs K1 (S <= 1024) or K2 (above) of
 ``pin_kernels``, the closed-form lasso update; ``qmax > 1`` runs K6 of
@@ -89,6 +93,29 @@ def screen_gram_extend(A_pad, Xs, Xnew, w, means_pad, s_old: int,
     A_pad[:, s_old:s_old + dS] = cross
     A_pad[s_old:s_old + dS, :] = cross.T
     return A_pad, means_pad
+
+
+def kron_cross(Xc, Xnew, W):
+    """The per-class weighted cross blocks ``Xc^T diag(W[:, k]) Xnew`` of a
+    Kronecker screen: (K, c, d) for ``Xc`` (n, c), ``Xnew`` (n, d) and the
+    class weights ``W`` (n, K), all from one GEMM
+    ``Xc^T [Xnew W_0 | ... | Xnew W_{K-1}]``, the (n, K d) product its only
+    temporary."""
+    n, d = Xnew.shape
+    with matmul_precision():
+        P = (Xnew[:, None, :] * W[:, :, None]).reshape(n, W.shape[1] * d)
+        out = Xc.T @ P
+    return out.reshape(Xc.shape[1], W.shape[1], d).permute(1, 0, 2)
+
+
+def kron_gram(Xc, W):
+    """The screen Gram of ``X (x) I_K`` in its nonzero blocks: for the
+    child's gathered columns ``Xc`` (n, c) and the flattened weights as
+    ``W`` (n, K), the per-class Grams ``G[k] = Xc^T diag(W[:, k]) Xc``
+    (K, c, c).  Entry ((q, k), (q', k')) of the flattened Gram is
+    ``G[k][q, q']`` if k == k', else 0: the naive gather's (n K, S) block
+    computes the same sums with K - 1 of every K terms zero."""
+    return kron_cross(Xc, Xc, W).contiguous()
 
 
 def screen_eigh(A, slot_begin, slot_size, qmax: int):

@@ -4,7 +4,9 @@ Counterpart of ``adelie_tpu/solver/state_core.py``.  The host (numpy) side
 keeps the dynamic screen/active bookkeeping and the per-lambda outputs, and
 doubles as the warm-start carrier.  The device side keeps the residual, the
 full gradient and a *screen cache*: the gathered screened columns, their
-weighted Gram and the per-slot diagonals, in capacity-bucketed buffers.
+weighted Gram and the per-slot diagonals, in capacity-bucketed buffers
+(``ScreenCache``; for ``X (x) I_K``, ``KroneckerScreenCache``, which keeps
+the child's columns and one Gram a class).
 """
 
 from dataclasses import dataclass, field
@@ -14,9 +16,11 @@ import numpy as np
 import torch
 
 from ..configs import configs
+from ..matrix.wrappers import MatrixNaiveKroneckerEye
 from ..utils import TORCH_DTYPE, bucket, bucket_pow2
 from ..utils.groups import GroupIndex, group_sum
-from .pin import insert_cols, screen_eigh, screen_gram, screen_gram_extend
+from .pin import (insert_cols, kron_cross, kron_gram, screen_eigh,
+                  screen_gram, screen_gram_extend)
 
 
 def abs_grad_kernel(grad, cols_padded, beta_padded, penalty_cols, cols,
@@ -45,7 +49,13 @@ def screen_cap(n: int) -> int:
 
 
 class ScreenCache:
-    """Device-resident derived quantities of the current screen set."""
+    """Device-resident derived quantities of the current screen set.
+
+    The screened columns are gathered into one dense block ``Xs``; the
+    screen solves read only the Gram ``A``, the slot buffers and the
+    block's three products (``screen_grad``, ``screen_apply``,
+    ``screen_apply_many``).  ``KroneckerScreenCache`` keeps the same
+    interface for ``X (x) I_K``."""
 
     def __init__(self):
         self.version = -1          # host screen-set version this reflects
@@ -64,11 +74,26 @@ class ScreenCache:
         self.eigvals = None
         self.eigvecs = None
         self._weights_ref = None   # weights tensor A/means were built with
-        self._pending_ext = None   # (s_old, Xnew) awaiting rebuild_weighted
+        self._pending_ext = None   # gathered extension awaiting
+                                   # rebuild_weighted
         self._prev_ss = None       # screen_set of the last structure build
-        self._A_prev = None        # incremental base for screen_gram_extend
+        self._A_prev = None        # incremental base for the Gram's extension
         self._means_prev = None
 
+    # -- the screen block's products (callers set the matmul precision) -- #
+    def screen_grad(self, u):
+        """``Xs^T u`` (S_cap,) for a weighted residual ``u`` (n,)."""
+        return u @ self.Xs
+
+    def screen_apply(self, d):
+        """``Xs d`` (n,) for screen values ``d`` (S_cap,)."""
+        return self.Xs @ d
+
+    def screen_apply_many(self, D):
+        """``Xs D_c`` for every row of ``D`` (C, S_cap): (C, n)."""
+        return D @ self.Xs.T
+
+    # -- structure ------------------------------------------------------- #
     def rebuild_structure(self, state):
         """Re-gather columns after a screen-set change.  The screen set only
         grows by appending, so when the previous gather is a prefix of the
@@ -94,6 +119,36 @@ class ScreenCache:
         self.slot_size = torch.as_tensor(slot_size, device=dev)
         self.penalty_slots = torch.as_tensor(penalty_slots, device=dev)
 
+    def _gather_all(self, state, cols, S_cap):
+        """Gather the screen's columns ``cols`` into a new block."""
+        Xs = torch.zeros((state.n, S_cap), dtype=state.torch_dtype,
+                         device=state.device)
+        if len(cols):
+            Xs[:, :len(cols)] = state.X.gather(
+                torch.as_tensor(cols, device=state.device))
+        self.Xs = Xs
+
+    def _gather_new(self, state, cols, s_old, S_cap):
+        """Gather the appended columns ``cols[s_old:]`` into the block.
+        Returns the pending extension for ``_gram_extend``, or None (and
+        changes nothing) when the block cannot take them."""
+        dS = len(cols) - s_old
+        dS_pad = bucket_pow2(dS)
+        if s_old + dS_pad > S_cap:
+            return None
+        Xnew = torch.zeros((state.n, dS_pad), dtype=state.torch_dtype,
+                           device=state.device)
+        Xnew[:, :dS] = state.X.gather(
+            torch.as_tensor(cols[s_old:], device=state.device))
+        Xs = self.Xs
+        if S_cap != self.S_cap:
+            grown = torch.zeros((state.n, S_cap), dtype=Xs.dtype,
+                                device=Xs.device)
+            grown[:, : self.S_cap] = Xs
+            Xs = grown
+        self.Xs = insert_cols(Xs, Xnew, s_old)
+        return (s_old, Xnew)
+
     def _full_rebuild_structure(self, state):
         ss = state.screen_set
         gs = state.group_sizes[ss]
@@ -109,15 +164,9 @@ class ScreenCache:
         S_cap = screen_cap(S_val + qmax)
         G_cap = bucket(len(ss), configs.group_cap_min)
 
-        Xs = torch.zeros((state.n, S_cap), dtype=state.torch_dtype,
-                         device=state.device)
-        if S_val:
-            Xs[:, :S_val] = state.X.gather(
-                torch.as_tensor(cols, device=state.device))
-
+        self._gather_all(state, cols, S_cap)
         self.cols = cols
         self.S_val, self.S_cap, self.G_cap, self.qmax = S_val, S_cap, G_cap, qmax
-        self.Xs = Xs
         self._slot_buffers(state, begins, gs, S_cap, G_cap, cols)
         self.begins_host = begins
         self.sizes_host = gs
@@ -134,7 +183,7 @@ class ScreenCache:
         prev = self._prev_ss
         if (
             prev is None
-            or self.Xs is None
+            or self.cols is None
             or self._pending_ext is not None   # don't stack unapplied exts
             or len(ss) <= len(prev)
             or not np.array_equal(ss[: len(prev)], prev)
@@ -146,32 +195,19 @@ class ScreenCache:
         if qmax_new > self.qmax:
             return False
         s_old = self.S_val
-        dS = int(gs_new.sum())
-        S_val = s_old + dS
+        S_val = s_old + int(gs_new.sum())
         S_cap = screen_cap(S_val + self.qmax)
         G_cap = bucket(len(ss), configs.group_cap_min)
-        dS_pad = bucket_pow2(dS)
-        if s_old + dS_pad > S_cap:
-            return False
 
         new_cols = np.concatenate(
             [np.arange(state.groups[g], state.groups[g] + state.group_sizes[g])
              for g in new_groups]
         ).astype(np.int64)
-        Xnew = torch.zeros((state.n, dS_pad), dtype=state.torch_dtype,
-                           device=state.device)
-        Xnew[:, :dS] = state.X.gather(
-            torch.as_tensor(new_cols, device=state.device))
-
-        Xs = self.Xs
-        if S_cap != self.S_cap:
-            grown = torch.zeros((state.n, S_cap), dtype=Xs.dtype,
-                                device=Xs.device)
-            grown[:, : self.S_cap] = Xs
-            Xs = grown
-        Xs = insert_cols(Xs, Xnew, s_old)
-
         cols = np.concatenate([self.cols, new_cols])
+        ext = self._gather_new(state, cols, s_old, S_cap)
+        if ext is None:
+            return False
+
         begins = np.concatenate(
             [self.begins_host,
              s_old + np.concatenate([[0], np.cumsum(gs_new)])[:-1]]
@@ -180,12 +216,11 @@ class ScreenCache:
 
         self.cols = cols
         self.S_val, self.S_cap, self.G_cap = S_val, S_cap, G_cap
-        self.Xs = Xs
         self._slot_buffers(state, begins, sizes, S_cap, G_cap, cols)
         self.begins_host = begins
         self.sizes_host = sizes
         self._prev_ss = np.asarray(ss).copy()
-        self._pending_ext = (s_old, Xnew)
+        self._pending_ext = ext
         # the old weighted quantities are the incremental base (None if
         # rebuild_weighted never ran for the previous structure: then
         # rebuild_weighted recomputes in full)
@@ -193,6 +228,15 @@ class ScreenCache:
         self._means_prev = self.means_s
         self.A = None
         return True
+
+    # -- the weighted Gram ------------------------------------------------ #
+    def _gram(self, weights, intercept):
+        return screen_gram(self.Xs, weights, intercept)
+
+    def _gram_extend(self, A_pad, means_pad, ext, weights, intercept):
+        s_old, Xnew = ext
+        return screen_gram_extend(A_pad, self.Xs, Xnew, weights, means_pad,
+                                  s_old, intercept)
 
     def rebuild_weighted(self, weights, intercept):
         """(Re)compute the Gram and the per-slot diagonals.  A pending
@@ -206,7 +250,6 @@ class ScreenCache:
             and self._A_prev is not None
             and weights is self._weights_ref
         ):
-            s_old, Xnew = ext
             A_pad = self._A_prev
             means_pad = self._means_prev
             if A_pad.shape[0] != self.S_cap:
@@ -217,16 +260,15 @@ class ScreenCache:
                 means_pad = torch.zeros(self.S_cap, dtype=A_pad.dtype,
                                         device=A_pad.device)
                 means_pad[:old] = self._means_prev
-            self.A, self.means_s = screen_gram_extend(
-                A_pad, self.Xs, Xnew, weights, means_pad, s_old, intercept,
-            )
+            self.A, self.means_s = self._gram_extend(A_pad, means_pad, ext,
+                                                     weights, intercept)
         else:
             # drop the old Gram, and the new columns of an extension the
             # full Gram covers, before the new one is formed: an IRLS
             # refresh would otherwise hold both
             ext = self._pending_ext = None
             self.A = self._A_prev = self.eigvals = self.eigvecs = None
-            self.A, self.means_s = screen_gram(self.Xs, weights, intercept)
+            self.A, self.means_s = self._gram(weights, intercept)
         self._pending_ext = None
         self._weights_ref = weights
         self._A_prev = self.A
@@ -244,6 +286,163 @@ class ScreenCache:
         out = np.zeros(self.G_cap, bool)
         out[: len(flags)] = flags
         return torch.as_tensor(out, device=device)
+
+
+class KroneckerScreenCache(ScreenCache):
+    """The screen cache of ``X (x) I_K`` (the multi-response problem):
+    it keeps the Kronecker structure and never gathers the (n K, S)
+    block, K - 1 of whose every K entries are zero.
+
+    Slot j is flattened column ``q K + k``: column q of the child, class k
+    (the intercepts' K slots included: column 0 of ``concatenate([1,
+    X])``).  The cache keeps the child's gathered columns ``Xc`` (n,
+    c_cap), each once, with one spare zero column past them, and each
+    slot's (child position, class); the per-class Grams ``G`` of those
+    columns (``pin.kron_gram``: K from one GEMM), scattered into the
+    (S_cap, S_cap) slot layout that K1, K2 and K6 read as before (entries
+    of two classes are 0).  The extension after an append forms only the
+    new columns' cross blocks, per class.  The screen gradient, the
+    residual update and the streamed residuals are (n, K) products with
+    ``Xc``.  The multi-response problem runs without the implicit
+    intercept (its intercepts are columns), so the Gram is not centered
+    and the screen means are zero."""
+
+    def __init__(self, K):
+        super().__init__()
+        self.K = int(K)
+        self.Xc = None             # (n, c_cap) the child's columns, 0-padded
+        self.ccols = None          # np the child's column indices in Xc
+        self.G = None              # (K, c_cap, c_cap) per-class Grams
+        self.slot_c = None         # (S_cap,) int64 position in Xc (padding:
+                                   # the spare zero column)
+        self.slot_k = None         # (S_cap,) int64 class
+        self._classes = None       # per class (slots, positions), host
+
+    # -- products with the child's columns -------------------------------- #
+    def screen_grad(self, u):
+        P = self.Xc.T @ u.reshape(-1, self.K)          # (c_cap, K)
+        return P[self.slot_c, self.slot_k]
+
+    def _values(self, D):
+        """(..., S_cap) screen values -> (..., c_cap, K), by class."""
+        out = torch.zeros(D.shape[:-1] + (self.Xc.shape[1], self.K),
+                          dtype=D.dtype, device=D.device)
+        S = self.S_val
+        out[..., self.slot_c[:S], self.slot_k[:S]] = D[..., :S]
+        return out
+
+    def screen_apply(self, d):
+        return (self.Xc @ self._values(d)).reshape(-1)
+
+    def screen_apply_many(self, D):
+        return (self.Xc @ self._values(D)).reshape(D.shape[0], -1)
+
+    # -- structure ------------------------------------------------------- #
+    def _slot_maps(self, state, cols, S_cap):
+        K, dev = self.K, state.device
+        pos = np.asarray([self._cpos[int(q)] for q in cols // K], np.int64)
+        cls = (cols % K).astype(np.int64)
+        slot_c = np.full(S_cap, self.Xc.shape[1] - 1, np.int64)
+        slot_k = np.zeros(S_cap, np.int64)
+        slot_c[:len(cols)], slot_k[:len(cols)] = pos, cls
+        self.slot_c = torch.as_tensor(slot_c, device=dev)
+        self.slot_k = torch.as_tensor(slot_k, device=dev)
+        self._classes = [(np.flatnonzero(cls == k), pos[cls == k])
+                         for k in range(K)]
+
+    def _child_cols(self, state, qs):
+        """Append the child columns ``qs`` not yet in ``Xc`` (in order of
+        first appearance); returns (their first position, their block or
+        None)."""
+        c_old = len(self.ccols)
+        fresh = [int(q) for q in dict.fromkeys(qs.tolist())
+                 if int(q) not in self._cpos]
+        c_cap = bucket(c_old + len(fresh) + 1, configs.screen_cap_min)
+        child = state.X.child
+        if self.Xc is None or c_cap != self.Xc.shape[1]:
+            Xc = torch.zeros((child.rows(), c_cap), dtype=state.torch_dtype,
+                             device=state.device)
+            if self.Xc is not None:
+                Xc[:, :c_old] = self.Xc[:, :c_old]
+            self.Xc = Xc
+        if not fresh:
+            return c_old, None
+        Xnew = child.gather(torch.as_tensor(fresh, device=state.device))
+        self.Xc[:, c_old:c_old + len(fresh)] = Xnew
+        for i, q in enumerate(fresh):
+            self._cpos[q] = c_old + i
+        self.ccols = np.concatenate([self.ccols, np.asarray(fresh, np.int64)])
+        return c_old, Xnew
+
+    def _gather_all(self, state, cols, S_cap):
+        self.Xc, self.G = None, None
+        self.ccols, self._cpos = np.zeros(0, np.int64), {}
+        self._child_cols(state, cols // self.K)
+        self._slot_maps(state, cols, S_cap)
+
+    def _gather_new(self, state, cols, s_old, S_cap):
+        c_old, Xnew = self._child_cols(state, cols[s_old:] // self.K)
+        self._slot_maps(state, cols, S_cap)
+        return (c_old, Xnew, s_old)
+
+    # -- the weighted Gram ------------------------------------------------ #
+    def _check_intercept(self, intercept):
+        if intercept:
+            raise ValueError(
+                "a Kronecker screen block runs without the implicit "
+                "intercept: the multi-response problem carries its "
+                "intercepts as columns")
+
+    def _scatter(self, A, s_from):
+        """Write ``G``'s entries of the slots from ``s_from`` on (their rows
+        and columns against every slot) into ``A``."""
+        dev = A.device
+        for k, (J, C) in enumerate(self._classes):
+            g = self.G[k]
+            new = J >= s_from
+            Jn, Cn = (torch.as_tensor(J[new], device=dev),
+                      torch.as_tensor(C[new], device=dev))
+            Jd, Cd = torch.as_tensor(J, device=dev), torch.as_tensor(C,
+                                                                     device=dev)
+            A[Jd[:, None], Jn[None, :]] = g[Cd[:, None], Cn[None, :]]
+            if s_from:
+                A[Jn[:, None], Jd[None, :]] = g[Cn[:, None], Cd[None, :]]
+
+    def _means(self):
+        """The screen means, read only with the implicit intercept, which
+        this block refuses: zero."""
+        return torch.zeros(self.S_cap, dtype=self.Xc.dtype,
+                           device=self.Xc.device)
+
+    def _gram(self, weights, intercept):
+        self._check_intercept(intercept)
+        self.G = None
+        W = weights.reshape(-1, self.K)
+        self.G = kron_gram(self.Xc, W)
+        A = torch.zeros((self.S_cap, self.S_cap), dtype=self.Xc.dtype,
+                        device=self.Xc.device)
+        self._scatter(A, 0)
+        return A, self._means()
+
+    def _gram_extend(self, A_pad, means_pad, ext, weights, intercept):
+        self._check_intercept(intercept)
+        c_old, Xnew, s_old = ext
+        W = weights.reshape(-1, self.K)
+        G = self.G
+        c_cap = self.Xc.shape[1]
+        if G.shape[1] != c_cap:
+            grown = torch.zeros((G.shape[0], c_cap, c_cap), dtype=G.dtype,
+                                device=G.device)
+            grown[:, :G.shape[1], :G.shape[2]] = G
+            G = grown
+        if Xnew is not None:
+            dc = Xnew.shape[1]
+            cross = kron_cross(self.Xc, Xnew, W)
+            G[:, :, c_old:c_old + dc] = cross
+            G[:, c_old:c_old + dc, :] = cross.transpose(1, 2)
+        self.G = G
+        self._scatter(A_pad, s_old)
+        return A_pad, self._means()
 
 
 @dataclass
@@ -328,6 +527,8 @@ class NaiveStateBase:
     def __post_init__(self):
         self.dtype = np.dtype(self.dtype)
         self.torch_dtype = TORCH_DTYPE[self.dtype]
+        if isinstance(self.X, MatrixNaiveKroneckerEye):
+            self._cache = KroneckerScreenCache(self.X.K)
         if self.groups is None:
             return
         G = len(self.groups)

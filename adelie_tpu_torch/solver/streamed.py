@@ -26,9 +26,11 @@ the same results (nothing reads the padded columns), so the dry fit at
 fits (``glm_fused.glm_chunk_step`` with no KKT check), one ``mul_many``
 pass over the processed lambdas' gradients ``glm.gradient(eta_c)`` (already
 weighted; no centering, the intercept being a coordinate of eta) and the
-same certify and rollback.  Not ported: ``debug_check_state`` (ROADMAP.md:
-the model-selection layer) and the streamed constrained and multi-response
-drivers (ROADMAP.md: constraints, multi-response).
+same certify and rollback.  The multi-response problem runs these
+drivers on ``X (x) I_K`` (``solver/multi.py``): its ``mul_many`` serves the
+C lambdas of a chunk in all K classes in one pass.  Not ported:
+``debug_check_state`` (ROADMAP.md: the model-selection layer) and the
+streamed constrained driver (ROADMAP.md: constraints).
 """
 
 import numpy as np
@@ -47,13 +49,14 @@ __all__ = ["StreamedGaussianDriver", "StreamedGlmDriver", "kkt_finalize",
            "residual_stack"]
 
 
-def residual_stack(resid0, Xs, betas, beta0, w):
+def residual_stack(resid0, cache, betas, beta0, w):
     """Per-lambda residuals from the emitted coefficients:
-    ``R_c = resid0 - Xs (beta_c - beta0)``.  Returns the weighted
-    residuals ``U = R * w`` (C, n) and their sums ``R w`` (C,)."""
+    ``R_c = resid0 - Xs (beta_c - beta0)`` over the screen block of
+    ``cache``.  Returns the weighted residuals ``U = R * w`` (C, n) and
+    their sums ``R w`` (C,)."""
     dB = betas - beta0[None, :]
     with matmul_precision():
-        R = resid0[None, :] - dB @ Xs.T
+        R = resid0[None, :] - cache.screen_apply_many(dB)
         rsums = R @ w
     return R * w[None, :], rsums
 
@@ -106,9 +109,9 @@ def certify(fit_oks, kkts):
     return first - int(fit_failed), first, first, fit_failed
 
 
-def _resid_at(resid0, Xs, beta_t, beta0):
+def _resid_at(resid0, cache, beta_t, beta0):
     with matmul_precision():
-        return resid0 - Xs @ (beta_t - beta0)
+        return resid0 - cache.screen_apply(beta_t - beta0)
 
 
 def _spec_viol_margin(abs_grad_all, lmdas, alpha, penalty_groups,
@@ -197,7 +200,7 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
         # one streamed pass for the chunk's KKT
         sw_k = Stopwatch().start()
         betas = torch.stack([e.beta for e in emits])
-        U, rsums = residual_stack(resid0, cache.Xs, betas, beta0, s.weights)
+        U, rsums = residual_stack(resid0, cache, betas, beta0, s.weights)
         abs_grad_all, kkts, Gstack = kkt_finalize(
             s.X.mul_many(U), s.X_means, rsums, lm, s.alpha,
             s._penalty_cols, betas, cache.cols_padded, s._group_cols,
@@ -231,7 +234,7 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
             s.screen_beta = betas[t].cpu().numpy()[: cache.S_val].copy()
             s.screen_is_active = \
                 emits[t].active.cpu().numpy()[: len(s.screen_set)].copy()
-            s.resid = _resid_at(resid0, cache.Xs, betas[t], beta0)
+            s.resid = _resid_at(resid0, cache, betas[t], beta0)
             s.rsq = emits[t].rsq
             s.resid_sum = rsums_h[t]
             s.abs_grad = abs_grad_all[:, t].cpu().numpy()

@@ -22,7 +22,11 @@ class WarmStart:
     coefficients, ``lmda``, ``lmda_max``, ``resid``, ``grad`` and
     ``abs_grad``.  The gaussian path also ``X_means``, ``y_mean``,
     ``y_var``, ``rsq`` and ``resid_sum``; a GLM's IRLS path ``eta``,
-    ``beta0``, ``loss_null`` and ``loss_full``."""
+    ``beta0``, ``loss_null`` and ``loss_full``.  A multi-response fit's
+    fields are those of its flattened problem on ``X (x) I_K``: the
+    residual, gradient and eta of length n K and p K, the screen over the
+    flattened groups, whose first K coefficients are the per-class
+    intercepts; it has no ``y_mean`` or ``beta0``."""
 
     screen_set: np.ndarray
     screen_begins: np.ndarray

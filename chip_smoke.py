@@ -132,14 +132,15 @@ G4. the Cox headline: stop = -log(u) exp(-z / 2) rounded to 0.01 (ties),
 G5. the case-control GWAS (run after phase 9, on its panel in device
     memory): cases from its 40 causal SNPs' standardized score, 50
     lambdas to ``GWAS_GLM_MIN_RATIO`` (5e-2, the gaussian GWAS's),
-    intercept, early exit (K3, K1, K2); the warm-up runs under the
-    profiler;
+    intercept, early exit (K3, K1, K2); a warm-up under the profiler and
+    one timed fit, bit-equal to it (three timed fits before the
+    multi-response phases took their time);
 G6. the streamed case-control GWAS at the north star (run after phase
     14, on its panel in host memory): cases from its 60 causal SNPs'
-    score, 50 lambdas to ``GWAS_GLM_MIN_RATIO``, a profiled warm-up and a
-    timed fit, each stopped by a wall budget (``GLM_STREAM_BUDGET_S``, an
-    ``exit_cond``) and bit-equal on the lambdas both solved, ``X.sweeps``,
-    the KKT check from one plain float64 pass (K5, K1);
+    score, 50 lambdas to ``GWAS_GLM_MIN_RATIO``, one timed fit (a
+    profiled warm-up and a timed fit before the multi-response phases),
+    stopped by a wall budget (``GLM_STREAM_BUDGET_S``, an ``exit_cond``),
+    ``X.sweeps``, the KKT check from one plain float64 pass (K5, K1);
 G7. ``data.dense(2000, 300, 60, glm=...)`` in float64 on "cuda" and on
     "cpu" (the twins) for binomial, poisson and Cox, and a grouped
     binomial (K6 against its twin): lambdas to rtol 1e-10, beta within
@@ -147,14 +148,50 @@ G7. ``data.dense(2000, 300, 60, glm=...)`` in float64 on "cuda" and on
 
 G0-G4 and G7 run after phase 7c.
 
+The multi-response phases (``X (x) I_K``: K6 carries every solve once a
+column is screened, a column's K classes being one group; the screen's
+Gram is formed one class at a time from the child's columns):
+
+M1. the multinomial headline (after G7): phase 5's X, K = 3 classes
+    drawn from softmax(X B) on its 60 true nonzero rows, intercept, 100
+    lambdas to 1e-2, no early exit: a profiled warm-up, two timed fits
+    (bit-equal); IRLS iterations per lambda, K1 and K6 launches, the
+    KKT per lambda in float64 (``multi_kkt``: every zero group held; the
+    nonzero groups' stationarity and the per-class intercept scores,
+    which the solvers meet only to their tolerances, reported);
+M0. the Kronecker screen block at M1's last screen under the IRLS
+    weights of its last iteration, against the naive (n K, S_cap) gather
+    formed once: times, peaks, the Gram's, screen gradient's and residual
+    update's largest gaps (float32, held at 1e-5), then in float64 at
+    n = 2,000, p = 300 on random class weights, formed and extended
+    (held at 1e-12);
+M5. ``data.dense(2000, 300, 60, K=...)`` in float64 on "cuda" and on
+    "cpu": a multinomial (K = 3, 10 lambdas) and a multigaussian (K = 4,
+    30 lambdas), lambda, beta and intercepts within 1e-8;
+M2. the multi-trait GWAS (after G5, on phase 9's panel in device memory):
+    K = 4 traits from its 40 causal SNPs, a multigaussian path of 50
+    lambdas to 5e-2, intercept, early exit: a warm-up and two timed fits,
+    K3's launches (K a gradient), the KKT per lambda;
+M4. (after phase 13) phase 11's snpdat panel with a multigaussian of
+    K = 4 and a multinomial of K = 3 from ``data.snp_unphased`` (5
+    lambdas to 0.3 lambda_max, tol 1e-16), in
+    device memory and streamed (the speculative union off) on the card:
+    lambda 1e-10, beta and intercepts 1e-6;
+M3. the streamed multi-trait north star (after G6, on phase 14's panel
+    in host memory): K = 4 traits from its 60 causal SNPs, a
+    multigaussian path of 50 lambdas to 5e-2: a profiled warm-up and a
+    timed fit, its passes, K5's launches at each width C K and K5's time
+    there on the first tile against a tile's copy, the KKT from one plain
+    float64 pass.
+
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
 first timed fit and read after it (K6), zeroed before phase 6's timed fit
 and read after it (K2), zeroed before phase 9 and read after it (K3),
 zeroed before phase 10 and read after it (K4; and before and after 10b's
 timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
-after it (K5, with no K3); each GLM cell's, before and after its first
-timed fit.  Every kernel must have run on its path, and the kernels' JSON
+after it (K5, with no K3); each GLM and multi-response cell's, before and
+after its first timed fit.  Every kernel must have run on its path, and the kernels' JSON
 gives each kernel's launches on every path that ran it
 (``launches_by_path``).  Any failed phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
@@ -994,7 +1031,7 @@ def headline_problem(n, p, k, seed, with_signal=False):
     y = (signal + 0.5 * rng.standard_normal(n)).astype(np.float32)
     X -= X.mean(axis=0)
     y -= y.mean()
-    return (X, y, signal) if with_signal else (X, y)
+    return (X, y, signal, nz) if with_signal else (X, y)
 
 
 def big_s_problem():
@@ -1870,19 +1907,26 @@ def glm_profile_line(prof):
 def timed_fits(ad, Xm, glm, counters, reps=3, profiled=False, **kw):
     """A warm-up and ``reps`` timed fits of one cell: the launch counts of
     the first timed fit (counters zeroed just before it), its peak device
-    memory, the median wall, and the first two fits bit-equal in lambda
-    and beta, or the run fails.  With ``profiled`` the warm-up runs under
-    ``profile_fit``.  Returns (state, walls, warm-up s, counts, peak GiB,
-    the warm-up's profile or None)."""
+    memory, the median wall, and the first two fits (with one timed fit,
+    the warm-up and the timed fit) bit-equal in lambda and beta, or the
+    run fails.  With ``profiled`` the warm-up runs under ``profile_fit``.
+    Returns (state, walls, warm-up s, counts, peak GiB, the warm-up's
+    profile or None)."""
     import numpy as np
     import torch
 
-    prof = None
+    def path(st):
+        # the host copies only: a state holds its screen block on the card
+        return st.lmdas, st.betas.toarray()
+
+    prof, kept = None, []
     if profiled:
-        prof = profile_fit(ad, Xm, None, glm, **kw)
+        prof = profile_fit(ad, Xm, None, glm, keep=kept, **kw)
         warm = float("nan") if prof is None else prof[0]
-    else:
-        warm, _ = fit(ad, Xm, None, glm, **kw)
+    if not kept:
+        warm, st = fit(ad, Xm, None, glm, **kw)
+        kept.append(st)
+    second = path(kept.pop())
     torch.cuda.reset_peak_memory_stats()
     zero_counts(*counters)
     wall, state = fit(ad, Xm, None, glm, **kw)
@@ -1893,11 +1937,12 @@ def timed_fits(ad, Xm, glm, counters, reps=3, profiled=False, **kw):
         wall, st = fit(ad, Xm, None, glm, **kw)
         walls.append(wall)
         if i == 0:
-            second = st
-    if not (np.array_equal(state.lmdas, second.lmdas)
-            and np.array_equal(state.betas.toarray(),
-                               second.betas.toarray())):
-        fail(f"{glm.name}: two timed fits differ (beta or lambdas)")
+            second = path(st)
+        del st
+    first = path(state)
+    if not (np.array_equal(first[0], second[0])
+            and np.array_equal(first[1], second[1])):
+        fail(f"{glm.name}: two fits differ (beta or lambdas)")
     return state, walls, warm, counts, peak, prof
 
 
@@ -1908,11 +1953,14 @@ def glm_cell_line(what, state, walls, warm, counts, peak, kkt,
     return (f"{what}: {len(state.lmdas)} lambdas, error "
             f"{state.error!r}, wall median {np.median(walls):.3f} s of "
             f"{len(walls)} ({min(walls):.3f}-{max(walls):.3f}; {warm_what} "
-            f"{warm:.3f} s), first two bit-equal, peak screen "
+            f"{warm:.3f} s), "
+            f"{'first two' if len(walls) > 1 else 'it and the warm-up'} "
+            f"bit-equal, peak screen "
             f"{int(max(state.screen_sizes))}, pin solves' S in "
             f"[{min(state.benchmark['pin_caps'])}, "
             f"{max(state.benchmark['pin_caps'])}], launches {counts}, "
-            f"{kkt_words(kkt)}, peak memory {peak:.2f} GiB")
+            f"{kkt if isinstance(kkt, str) else kkt_words(kkt)}, peak "
+            f"memory {peak:.2f} GiB")
 
 
 def gram_peak_phase(card, n=4096, S=16384):
@@ -2123,9 +2171,10 @@ def glm_gwas_phase(ad, card, tk, sk, Xm, io):
     """G5: the case-control GWAS on phase 9's panel in device memory:
     cases drawn from its 40 causal SNPs' standardized score, a logistic
     path of 50 lambdas to ``GWAS_GLM_MIN_RATIO`` with the intercept and
-    the early exit (K3, K1 and K2): a profiled warm-up and three timed
-    fits, the KKT per lambda.  Returns the launch counts of the first
-    timed fit."""
+    the early exit (K3, K1 and K2): a profiled warm-up and one timed fit
+    (three before the multi-response phases came: the script's time
+    limit), bit-equal, the KKT per lambda.  Returns the launch counts of
+    the timed fit."""
     import numpy as np
 
     y = case_control(standardized(io.signal), seed=25)
@@ -2133,7 +2182,8 @@ def glm_gwas_phase(ad, card, tk, sk, Xm, io):
     kw = dict(lmda_path_size=50, min_ratio=GWAS_GLM_MIN_RATIO,
               device="cuda")
     st, walls, warm, counts, peak, prof = timed_fits(
-        ad, Xm, glm, (tk.launches, sk.launches), profiled=True, **kw)
+        ad, Xm, glm, (tk.launches, sk.launches), reps=1, profiled=True,
+        **kw)
     if (st.error or not np.isfinite(st.devs).all()
             or counts["snp_mul"] <= 0 or counts["pin_lasso_solve"] <= 0):
         fail(f"case-control GWAS: error {st.error!r}, launches {counts}")
@@ -2181,11 +2231,11 @@ def wall_budget(seconds):
 def glm_north_star_phase(ad, card, tk, sk, Xm, io):
     """G6: the streamed case-control GWAS at the north star: cases drawn
     from its 60 causal SNPs' standardized score, a logistic path of 50
-    lambdas to ``GWAS_GLM_MIN_RATIO`` (K5 in every pass, K1 and K2), a
-    profiled warm-up and a timed fit, each within ``GLM_STREAM_BUDGET_S``,
-    bit-equal on the lambdas both solved, and the KKT of the timed fit's
-    lambdas from one plain float64 pass.  Returns the launch counts of
-    the timed fit."""
+    lambdas to ``GWAS_GLM_MIN_RATIO`` (K5 in every pass, K1 and K2): one
+    timed fit within ``GLM_STREAM_BUDGET_S`` (a profiled warm-up and a
+    timed fit before the multi-response phases came: the script's time
+    limit), and the KKT of its lambdas from one plain float64 pass.
+    Returns the launch counts of the fit."""
     import numpy as np
     import torch
 
@@ -2193,14 +2243,6 @@ def glm_north_star_phase(ad, card, tk, sk, Xm, io):
     glm = ad.glm.binomial(y)
     kw = dict(lmda_path_size=50, min_ratio=GWAS_GLM_MIN_RATIO,
               device="cuda")
-    kept = []
-    prof = profile_fit(ad, Xm, None, glm, keep=kept,
-                       exit_cond=wall_budget(GLM_STREAM_BUDGET_S), **kw)
-    if kept:
-        warm, st_w = (float("nan") if prof is None else prof[0]), kept[0]
-    else:
-        warm, st_w = fit(ad, Xm, None, glm,
-                         exit_cond=wall_budget(GLM_STREAM_BUDGET_S), **kw)
     torch.cuda.reset_peak_memory_stats()
     zero_counts(tk.launches, sk.launches)
     sweeps0 = Xm.sweeps
@@ -2215,12 +2257,6 @@ def glm_north_star_phase(ad, card, tk, sk, Xm, io):
         fail(f"streamed case-control: error {st.error!r}, "
              f"{len(st.lmdas)} lambdas, launches {counts}: K5 must carry "
              "every pass, K3 none")
-    L = min(len(st.lmdas), len(st_w.lmdas))
-    if not (np.array_equal(st.lmdas[:L], st_w.lmdas[:L])
-            and np.array_equal(st.betas[:L].toarray(),
-                               st_w.betas[:L].toarray())):
-        fail("streamed case-control: the warm-up and the timed fit differ "
-             "on the lambdas both solved")
     t0 = time.perf_counter()
     G, Bfull, _, R = stream_grad(io, y, st, resid_fn=glm_resid("logit", y))
     kkt = glm_kkt("streamed case-control", G.T, Bfull, st, R,
@@ -2232,10 +2268,9 @@ def glm_north_star_phase(ad, card, tk, sk, Xm, io):
           f"streamed, {y.mean():.3f} cases, binomial(y), intercept, 50 "
           f"lambdas to {GWAS_GLM_MIN_RATIO} within a wall budget of "
           f"{GLM_STREAM_BUDGET_S:.0f} s a fit (chunks of one lambda): "
-          f"{len(st.lmdas)} lambdas solved (the warm-up {len(st_w.lmdas)}),"
-          f" the last at {lm_ratio:.4f} of the first, error {st.error!r}, "
-          f"wall {wall:.3f} s (profiled warm-up {warm:.3f} s), bit-equal on "
-          f"the {L} both solved, active at the last lambda "
+          f"{len(st.lmdas)} lambdas solved, the last at {lm_ratio:.4f} of "
+          f"the first, error {st.error!r}, wall {wall:.3f} s (one fit, "
+          f"the first of the call on this path), active at the last lambda "
           f"{st.betas[-1].nnz}, causal hits {causal_hits(io, st)}, X.sweeps "
           f"{sweeps}, streamed KKT passes {len(st.benchmark['kkt'])} "
           f"({sum(st.benchmark['kkt']):.3f} s), peak screen "
@@ -2244,9 +2279,540 @@ def glm_north_star_phase(ad, card, tk, sk, Xm, io):
           f"{max(st.benchmark['pin_caps'])}], launches {counts}, "
           f"{kkt_words(kkt)} (one plain f64 pass, {kkt_s:.1f} s), peak "
           f"device memory {peak:.2f} GiB | {card}")
-    phase("north-star-logistic", f"{irls_line(st)}; the warm-up's "
+    phase("north-star-logistic", f"{irls_line(st)} | {card}")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
+# phases M0 to M5: multi-response fits on X (x) I_K                           #
+# --------------------------------------------------------------------------- #
+
+
+def multi_resid(family, Y):
+    """``E -> R`` for the KKT of a multi-response fit: the linear
+    predictors E (n, L, K) to the negative gradient of the loss in eta,
+    w (y - mu) / K with w = 1/n, float64 on the card, by plain formulas
+    (mu = E for the multigaussian, softmax over the classes for the
+    multinomial)."""
+    import numpy as np
+    import torch
+
+    Y64 = torch.as_tensor(np.asarray(Y, np.float64), device=DEV)[:, None, :]
+    n, K = Y64.shape[0], Y64.shape[2]
+    if family == "multigaussian":
+        return lambda E: (Y64 - E) / (n * K)
+    return lambda E: (Y64 - torch.softmax(E, dim=2)) / (n * K)
+
+
+def multi_kkt(what, cols, n, p, state, resid_fn, block=2048):
+    """The KKT conditions of a multi-response fit per lambda, in float64
+    on the card.  ``cols(idx)`` gives the user matrix's columns ``idx``
+    (n, len) in float64.  Each lambda's gradient X^T R (p, K) over every
+    column, from the residuals R (n, K) of its coefficients (L, p K) and
+    (L, K) intercepts; a column's K classes form one group of penalty
+    sqrt(K): every zero group within lambda sqrt(K) (1 + 1e-2), and every
+    class's intercept score (an unpenalized coordinate of the flattened
+    problem) within 1e-2 lambda, held.  The nonzero groups' stationarity
+    is reported: IRLS meets it only to ``irls_tol`` (its diagonal Hessian
+    bound converges slowly on the multinomial).  Returns (zero groups'
+    worst, nonzero groups' worst, intercept score), each / lambda."""
+    import numpy as np
+    import torch
+
+    K = state.n_classes
+    L = len(state.lmdas)
+    B = state.betas.tocsc()
+    act = np.unique(state.betas.tocsr().indices // K)
+    Ba = torch.as_tensor(
+        B[:, (act[:, None] * K + np.arange(K)).ravel()].toarray(),
+        dtype=torch.float64, device=DEV).reshape(L, len(act), K)
+    b0 = torch.as_tensor(np.asarray(state.intercepts, np.float64),
+                         device=DEV)                              # (L, K)
+    E = torch.einsum("na,lak->nlk", cols(act), Ba) + b0[None]
+    R = resid_fn(E)                                               # (n, L, K)
+    del E
+    Rf = R.reshape(n, L * K)
+    G = torch.empty((p, L * K), dtype=torch.float64, device=DEV)
+    for s in range(0, p, block):
+        e = min(s + block, p)
+        G[s:e] = cols(np.arange(s, e)).T @ Rf
+    G = G.reshape(p, L, K).permute(1, 0, 2).reshape(L, p * K)
+    Bf = torch.zeros((L, p, K), dtype=torch.float64, device=DEV)
+    Bf[:, torch.as_tensor(act, device=DEV)] = Ba
+    v0, v1 = group_kkt_parts(G, Bf.reshape(L, p * K), state.lmdas,
+                             np.arange(p) * K, np.full(p, K),
+                             np.full(p, np.sqrt(K)), 1.0)
+    zero, nonzero = float(v0.max()), float(v1.max())
+    lm = torch.as_tensor(np.asarray(state.lmdas), device=DEV)
+    score = float((R.sum(0).abs() / lm[:, None]).max())
+    del G, Bf, R, Rf
+    if not zero <= 1e-2:
+        fail(f"{what}: KKT violation {zero:.3e} lambda at a zero group")
+    if not score <= 1e-2:
+        fail(f"{what}: an intercept score of {score:.3e} lambda")
+    return zero, nonzero, score
+
+
+def dense_cols(X):
+    """``cols`` of ``multi_kkt`` for a dense numpy X."""
+    import torch
+
+    Xd = torch.as_tensor(X, device=DEV)
+    return lambda idx: Xd[:, torch.as_tensor(idx, device=DEV)].double()
+
+
+def snp_cols(io):
+    """``cols`` of ``multi_kkt`` for a packed panel in host memory: the
+    rows taken on the host, decoded on the card with plain torch code in
+    float64 (never K3 or K5), NA read as the column's impute value."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.matrix import snp_kernels as sk
+
+    n = io.rows()
+    imp = torch.as_tensor(np.asarray(io.impute, np.float64), device=DEV)
+
+    def cols(idx):
+        rows = torch.from_numpy(io.packed[np.asarray(idx)]).to(DEV)
+        blk = sk.unpack_cols(rows, n, torch.float64)
+        imp_i = imp[torch.as_tensor(idx, device=DEV)]
+        return torch.where(blk == 3, imp_i[None, :], blk)
+    return cols
+
+
+def multi_kkt_words(kkt):
+    zero, nonzero, score = kkt
+    return (f"KKT (float64, a column's K classes one group): zero groups "
+            f"{zero:.2e} lambda, nonzero groups' stationarity "
+            f"{nonzero:.2e} lambda, per-class intercept scores "
+            f"{score:.2e} lambda")
+
+
+MULTI_K = 3             # M1's classes (glmnet's multinomial vignette)
+MULTI_TRAITS = 4        # M2's and M3's traits
+MULTI_TOL = 1e-10       # M2's and M3's coordinate descent tolerance
+M4_DEEP_TOL = 1e-14     # M4's 20-lambda path on a 600 x 200 panel
+
+
+def multinomial_labels(X, nz, seed, K=MULTI_K):
+    """One-hot labels drawn from softmax(X B), B (p, K) zero but on the
+    rows ``nz`` (the headline's 60 true nonzeros), N(0, 1.5^2 / 60)
+    there, so each class's score has a standard deviation near 1.5."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((len(nz), K)) * (1.5 / np.sqrt(len(nz)))
+    E = X[:, nz].astype(np.float64) @ B
+    P = np.exp(E - E.max(1, keepdims=True))
+    P /= P.sum(1, keepdims=True)
+    u = rng.uniform(size=(len(X), 1))
+    labels = (P.cumsum(1) < u).sum(1).clip(max=K - 1)
+    return np.eye(K, dtype=np.float32)[labels]
+
+
+def multi_traits(io, seed, K=MULTI_TRAITS):
+    """K traits from the panel's causal SNPs: Y = X_c B + noise, B
+    (causal, K) N(0, 1) from ``seed``, the noise at half each trait's
+    signal's standard deviation, float32."""
+    import numpy as np
+
+    from adelie_tpu_torch.matrix._snp import unpack_2bit_np
+
+    rng = np.random.default_rng(seed)
+    n = io.rows()
+    cols = unpack_2bit_np(np.asarray(io.packed)[np.asarray(io.causal)],
+                          n).astype(np.float32)
+    B = rng.standard_normal((len(io.causal), K)).astype(np.float32)
+    S = cols.T @ B
+    noise = rng.standard_normal((n, K)).astype(np.float32)
+    return (S + 0.5 * S.std(0) * noise).astype(np.float32)
+
+
+def kron_hits(io, state):
+    """The causal SNPs among the last lambda's nonzero groups."""
+    K = state.n_classes
+    hits = set((state.betas[-1].tocoo().col // K).tolist()) & set(io.causal)
+    return f"{len(hits)}/{len(io.causal)}"
+
+
+def multi_dense_phase(ad, card, tk, pg, X, nz):
+    """M1: the multinomial headline.  The headline's X (n = 40,000, p =
+    2,000, f32), K = 3 classes drawn from softmax(X B) on its 60 true
+    nonzero rows, intercept, 100 lambdas to 1e-2, no early exit: a
+    profiled warm-up, two timed fits (bit-equal); IRLS iterations per
+    lambda, K1 and K6 launches, the KKT per lambda in float64.  Returns (launch counts of the first timed fit, its state:
+    M0 reads its last screen)."""
+    import numpy as np
+
+    Xm = ad.matrix.dense(X, device="cuda")
+    Y = multinomial_labels(X, nz, seed=31)
+    glm = ad.glm.multinomial(Y)
+    kw = dict(lmda_path_size=100, min_ratio=1e-2, early_exit=False,
+              device="cuda")
+    pg.reset_newton()
+    st, walls, warm, counts, peak, prof = timed_fits(
+        ad, Xm, glm, (tk.launches, pg.launches), reps=2, profiled=True,
+        **kw)
+    n, p = X.shape
+    if (st.error or len(st.lmdas) != 100 or counts["pin_group_solve"] <= 0
+            or st.intercepts.shape != (100, MULTI_K)):
+        fail(f"multinomial headline: error {st.error!r}, {len(st.lmdas)} "
+             f"lambdas, launches {counts}")
+    kkt = multi_kkt("multinomial headline", dense_cols(X), n, p, st,
+                    multi_resid("multinomial", Y))
+    phase("multinomial", f"n={n} p={p} K={MULTI_K} f32, class shares "
+          f"{np.round(Y.mean(0), 3).tolist()}, "
+          + glm_cell_line("multinomial(Y), intercept", st, walls, warm,
+                          counts, peak, multi_kkt_words(kkt),
+                          "profiled warm-up")
+          + f" | {card}")
+    phase("multinomial", f"{irls_line(st)}; dev[-1] {st.devs[-1]:.4f}; "
+          f"Newton (the three fits) {newton_line(pg.newton)} | {card}")
+    phase("multinomial", f"the warm-up's {glm_profile_line(prof)} | {card}")
+    return counts, st
+
+
+def kron_block_phase(card, state):
+    """M0: the Kronecker screen block at M1's last screen, under the IRLS
+    weights of its last iteration, against the naive gather of the
+    (n K, S_cap) block formed once as a yardstick: the Gram, the screen
+    gradient and the residual update, their times and peaks, the largest
+    gap relative to the Gram's largest entry (held at 1e-5 in float32);
+    then the same in float64 at n = 2,000, p = 300, K = 3 on random
+    class weights, held at 1e-12."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+
+    from adelie_tpu_torch.configs import matmul_precision
+    from adelie_tpu_torch.solver.pin import screen_gram
+    from adelie_tpu_torch.solver.state_core import (KroneckerScreenCache,
+                                                    ScreenCache)
+
+    def compare(kron, X_aug, w, gen):
+        """(kron ms, naive ms, kron peak GiB, naive peak GiB, gaps)."""
+        S_cap, S = kron.S_cap, kron.S_val
+        cols = torch.as_tensor(kron.cols, device=DEV)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kms, (A, _) = host_ms(lambda: kron._gram(w, False))
+        kpeak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def naive():
+            Xs = torch.zeros((X_aug.rows(), S_cap), dtype=w.dtype,
+                             device=DEV)
+            Xs[:, :S] = X_aug.gather(cols)
+            return Xs, screen_gram(Xs, w, False)[0]
+        nms, (Xs, A0) = host_ms(naive)
+        npeak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        scale = float(A0.abs().max())
+        gap_A = float((A - A0).abs().max()) / scale
+        del A
+        u = torch.randn(X_aug.rows(), dtype=w.dtype, device=DEV,
+                        generator=gen) * w
+        d = torch.zeros(S_cap, dtype=w.dtype, device=DEV)
+        d[:S] = torch.randn(S, dtype=w.dtype, device=DEV, generator=gen)
+        with matmul_precision():
+            g0, g = u @ Xs, kron.screen_grad(u)
+            r0, r = Xs @ d, kron.screen_apply(d)
+        gap_g = float((g - g0).abs().max() / g0.abs().max())
+        gap_r = float((r - r0).abs().max() / r0.abs().max())
+        del Xs, A0
+        torch.cuda.empty_cache()
+        return kms, nms, kpeak, npeak, (gap_A, gap_g, gap_r)
+
+    gen = torch.Generator(device=DEV).manual_seed(40)
+    kron = state._cache
+    w = kron._weights_ref
+    if not isinstance(kron, KroneckerScreenCache) or kron.Xs is not None:
+        fail("M1's screen cache is not the Kronecker block")
+    kms, nms, kpeak, npeak, gaps = compare(kron, state.X, w, gen)
+    phase("kron-block", f"M1's last screen: {kron.S_val} slots (S_cap "
+          f"{kron.S_cap}), {len(kron.ccols)} child columns (capacity "
+          f"{kron.Xc.shape[1]}), per-class Grams {tuple(kron.G.shape)}; "
+          f"the Gram by class {kms:.1f} ms, peak {kpeak:.3f} GiB above its "
+          f"inputs, against the naive (n K, S_cap) gather and Gram "
+          f"{nms:.1f} ms, peak {npeak:.3f} GiB; largest gaps relative to "
+          f"the largest entry: Gram {gaps[0]:.2e}, screen gradient "
+          f"{gaps[1]:.2e}, residual update {gaps[2]:.2e} (f32, bar 1e-5) "
+          f"| {card}")
+    if max(gaps) > 1e-5:
+        fail("the Kronecker screen block differs from the naive gather")
+    # float64, random class weights: the screen of every column
+    import adelie_tpu_torch as ad
+
+    rng = np.random.default_rng(41)
+    n, p, K = 2000, 300, 3
+    X = rng.standard_normal((n, p))
+    X_aug = ad.matrix.kronecker_eye(
+        ad.matrix.concatenate([np.ones((n, 1)), X], device=DEV), K)
+    groups = np.concatenate([np.arange(K), K + K * np.arange(0, p, 2)])
+    sizes = np.diff(np.concatenate([groups, [(p + 1) * K]]))
+    st = SimpleNamespace(
+        X=X_aug, groups=groups, group_sizes=sizes,
+        screen_set=np.arange(len(groups)), penalty=np.ones(len(groups)),
+        n=n * K, dtype=np.dtype("f8"), torch_dtype=torch.float64,
+        device=torch.device(DEV))
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, n * K), device=DEV)
+    w /= w.sum()
+    k64, naive = KroneckerScreenCache(K), ScreenCache()
+    # half the groups, then the rest appended: the extension's cross
+    # blocks by class
+    for step, ss in enumerate((np.arange(len(groups) // 2),
+                               np.arange(len(groups)))):
+        st.screen_set = ss
+        for c in (k64, naive):
+            c.rebuild_structure(st)
+            if step and c._pending_ext is None:
+                fail("the float64 screen block did not extend")
+            c.rebuild_weighted(w, False)
+    gap64 = float((k64.A - naive.A).abs().max() / naive.A.abs().max())
+    _, _, _, _, gaps64 = compare(k64, X_aug, w, gen)
+    phase("kron-block", f"float64, n={n} p={p} K={K}, groups of 2, class "
+          f"weights at random: Gram gap {gap64:.2e} extended, "
+          f"{gaps64[0]:.2e} formed, screen gradient {gaps64[1]:.2e}, "
+          f"residual update {gaps64[2]:.2e} (bar 1e-12)")
+    if max(gap64, *gaps64) > 1e-12:
+        fail("the Kronecker screen block differs from the naive gather in "
+             "float64")
+
+
+def multi_gwas_phase(ad, card, tk, pg, sk, Xm, io):
+    """M2: the multi-trait GWAS in device memory: phase 9's panel, K = 4
+    traits from its 40 causal SNPs, a multigaussian path of 50 lambdas to
+    5e-2, intercept, early exit, ``tol`` 1e-10 (at the default 1e-7 the
+    slow coordinate descent of the intercepts beside the panel's
+    uncentered columns leaves intercept scores near 1e-2 lambda): a
+    profiled warm-up and two timed fits (bit-equal), K3's launches (K a
+    gradient) and device ms a launch beside its bound, the KKT per lambda
+    in float64.  Returns the launch counts of the first timed fit."""
+    Y = multi_traits(io, seed=32)
+    glm = ad.glm.multigaussian(Y)
+    kw = dict(lmda_path_size=50, min_ratio=5e-2, tol=MULTI_TOL,
+              device="cuda")
+    st, walls, warm, counts, peak, prof = timed_fits(
+        ad, Xm, glm, (tk.launches, pg.launches, sk.launches), reps=2,
+        profiled=True, **kw)
+    if (st.error or counts["snp_mul"] <= 0 or counts["pin_group_solve"] <= 0
+            or counts["snp_mul"] % MULTI_TRAITS):
+        fail(f"multi-trait GWAS: error {st.error!r}, launches {counts}: "
+             f"K3 {MULTI_TRAITS} times a gradient")
+    n, p = Xm.shape
+    kkt = multi_kkt("multi-trait GWAS", snp_cols(io), n, p, st,
+                    multi_resid("multigaussian", Y))
+    k3 = [(c, ms) for name, (c, ms) in (prof[2] if prof else {}).items()
+          if "snp_mul_kernel" in name]
+    k3_n, k3_ms = sum(c for c, _ in k3), sum(ms for _, ms in k3)
+    b_ms, b_by = snp_bound(p, n, True)
+    k3_words = (f"K3 in the profiled warm-up {k3_ms:.1f} ms in {k3_n} "
+                f"launches, {k3_ms / k3_n:.3f} ms a launch against a bound "
+                f"of {b_ms:.3f} ms ({b_by})" if k3_n else
+                "K3's device time not measured")
+    phase("gwas-multi", f"n={n} p={p} K={MULTI_TRAITS} f32, "
+          + glm_cell_line(f"multigaussian(Y), intercept, early exit, tol "
+                          f"{MULTI_TOL:g}", st, walls, warm, counts, peak,
+                          multi_kkt_words(kkt), "profiled warm-up")
+          + f", K3 launches {counts['snp_mul']} ("
+          f"{counts['snp_mul'] / MULTI_TRAITS:.0f} gradients, "
+          f"{counts['snp_mul'] / MULTI_TRAITS / len(st.lmdas):.2f} a "
+          f"lambda), causal hits {kron_hits(io, st)}, devs[-1] "
+          f"{st.devs[-1]:.4f} | {card}")
+    phase("gwas-multi", f"{k3_words}; the warm-up's "
           f"{glm_profile_line(prof)} | {card}")
     return counts
+
+
+def multi_north_star_phase(ad, card, tk, pg, sk, Xm, io, copy_s):
+    """M3: the streamed multi-trait north star: phase 14's panel in host
+    memory, K = 4 traits from its 60 causal SNPs, a multigaussian path of
+    50 lambdas to 5e-2, ``tol`` 1e-10 (as M2), f32: a profiled warm-up
+    and one timed fit, the
+    passes, K5's launches at each width C K, its time at those widths on
+    the first tile against a tile's copy (``copy_s``: phase 14's
+    copy-only pass), the KKT per lambda from one plain float64 pass.
+    Returns the launch counts of the timed fit."""
+    import numpy as np
+    import torch
+
+    Y = multi_traits(io, seed=33)
+    glm = ad.glm.multigaussian(Y)
+    kw = dict(lmda_path_size=50, min_ratio=5e-2, tol=MULTI_TOL,
+              device="cuda")
+    prof = profile_fit(ad, Xm, None, glm, **kw)
+    widths = {}
+    many = sk.snp_mul_many
+
+    def counted(tile, U, *a, **k):
+        widths[U.shape[0]] = widths.get(U.shape[0], 0) + 1
+        return many(tile, U, *a, **k)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(tk.launches, pg.launches, sk.launches)
+    sweeps0 = Xm.sweeps
+    sk.snp_mul_many = counted
+    try:
+        wall, st = fit(ad, Xm, None, glm, **kw)
+    finally:
+        sk.snp_mul_many = many
+    counts = {**tk.launches, **pg.launches, **sk.launches}
+    sweeps = Xm.sweeps - sweeps0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (st.error or len(st.lmdas) < 2 or counts["snp_mul_many"] <= 0
+            or counts["snp_mul"] != 0 or counts["pin_group_solve"] <= 0
+            or sum(widths.values())
+            != counts["snp_mul_many"]):
+        fail(f"streamed multi-trait: error {st.error!r}, launches {counts}, "
+             f"K5 by width {widths}: K5 must carry every pass, K3 none")
+    t0 = time.perf_counter()
+    n, p = io.rows(), io.snps()
+    kkt = multi_kkt("streamed multi-trait", snp_cols(io), n, p, st,
+                    multi_resid("multigaussian", Y), block=4096)
+    kkt_s = time.perf_counter() - t0
+    phase("north-star-multi", f"n={n} p={p} K={MULTI_TRAITS} f32 streamed,"
+          f" multigaussian(Y), intercept, 50 lambdas to 5e-2, tol "
+          f"{MULTI_TOL:g}: "
+          f"{len(st.lmdas)} lambdas, wall {wall:.3f} s (profiled warm-up "
+          f"{float('nan') if prof is None else prof[0]:.3f} s), X.sweeps "
+          f"{sweeps}, streamed KKT passes {len(st.benchmark['kkt'])} "
+          f"({sum(st.benchmark['kkt']):.3f} s), K5 launches by width C K "
+          f"{dict(sorted(widths.items()))}, launches {counts}, peak screen "
+          f"{int(max(st.screen_sizes))} groups, causal hits "
+          f"{kron_hits(io, st)}, devs[-1] {st.devs[-1]:.4f}, "
+          f"{multi_kkt_words(kkt)} (one plain f64 pass, {kkt_s:.1f} s), "
+          f"peak device memory {peak:.2f} GiB | {card}")
+    phase("north-star-multi", f"the warm-up's {profile_line(prof)}; "
+          f"{chunk_pass_line(prof, sweeps)} | {card}")
+    tile = Xm._host[:NS_TILE].to(DEV)
+    per_tile = copy_s * 1e3 / Xm._ntiles
+    t = many_timing(tile, n, tuple(sorted(widths)), Xm._impute[:NS_TILE],
+                    seed=340)
+    for C, r in t.items():
+        sets = "K5" if r["ms"] > per_tile else "the tile's copy"
+        phase("K5", f"north-star tile 0 at C K = {C} (streamed "
+              f"multi-trait, {widths[C]} launches): kernel {r['ms']:.3f} ms "
+              f"against a tile's copy {per_tile:.3f} ms (phase 14's "
+              f"copy-only pass over {Xm._ntiles} tiles): {sets} sets the "
+              f"pass; bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+              f"torch.matmul on the decoded tile {r['library_ms']:.3f} ms "
+              f"| {card}")
+    del tile
+    return counts
+
+
+def multi_stream_vs_hbm_phase(ad, card, io11,
+                              deep=("multigaussian",)):
+    """M4: a multigaussian of K = 4 traits and a multinomial of K = 3
+    classes from ``data.snp_unphased``, fitted on the card in device
+    memory and streamed (the speculative union off, which keeps the
+    in-device screens): lambda within 1e-10 relative, beta and the
+    intercepts within 1e-6.  On two panels with 10 % NA: phase 11's
+    snpdat panel (n = 2,000, p = 1,500; tiles of 256 SNPs, a ragged last
+    one), the first 5 lambdas to 0.3 lambda_max at ``tol`` 1e-16; and, for
+    the families in ``deep``, a 600 x 200 panel, 20 lambdas to 1e-2 at
+    ``tol`` M4_DEEP_TOL (tiles of 64).  ``irls_tol`` is 1e-12 on both.
+    The multinomial's deep path is left out by default: at ``irls_tol``
+    1e-12 its IRLS takes 954 iterations over the 20 lambdas, 110 s in
+    device memory and 204 s streamed on an H100.  The flattened problem's
+    intercepts are coordinates beside the panel's uncentered columns, so
+    coordinate descent converges slowly and its stopping rule
+    (A_kk dbeta^2 < tol) leaves two drivers' paths apart by what the rule
+    lets through: at the default tol the JAX package's own in-device and
+    streamed multigaussian part by 1.8e-3 in beta on the 600 x 200 panel,
+    as the port's do (``tools/multi_driver_gap.py``).  Each fit's wall is
+    printed."""
+    import numpy as np
+
+    from adelie_tpu_torch import _build
+    from adelie_tpu_torch.configs import set_configs
+
+    f = _build.BUILD_DIR / "chip_smoke_m4.snpdat"
+    f.parent.mkdir(parents=True, exist_ok=True)
+    panels = (("snpdat", 2000, 1500, 256, dict(lmda_path_size=5,
+                                                min_ratio=0.3, tol=1e-16)),
+              ("600x200", 600, 200, 64, dict(lmda_path_size=20,
+                                              tol=M4_DEEP_TOL)))
+    for name, n, p, tile, path in panels:
+        for family, K in (("multigaussian", 4), ("multinomial", 3)):
+            if name != "snpdat" and family not in deep:
+                continue
+            d = ad.data.snp_unphased(n, p, K=K, glm=family,
+                                     missing_ratio=0.1, seed=11)
+            if name == "snpdat":
+                io = io11
+            else:
+                ad.io.snp_unphased(str(f)).write(d["X"])
+                io = ad.io.snp_unphased(str(f)).read()
+                f.unlink()
+            kw = dict(path, irls_tol=1e-12)
+            hbm_s, hbm = fit(ad, ad.matrix.snp_unphased(io, device="cuda"),
+                             None, d["glm"], **kw)
+            set_configs("stream_speculative_union", False)
+            try:
+                Xs = ad.matrix.snp_unphased(io, streaming=True,
+                                            tile_snps=tile, dtype=np.float64,
+                                            device="cuda")
+                strm_s, strm = fit(ad, Xs, None, d["glm"], **kw)
+            finally:
+                set_configs("stream_speculative_union")
+            what = f"{family} {name}"
+            if (hbm.error or strm.error
+                    or len(hbm.lmdas) != len(strm.lmdas)):
+                fail(f"{what} streamed vs in-HBM: errors {hbm.error!r} "
+                     f"{strm.error!r}, {len(hbm.lmdas)} vs "
+                     f"{len(strm.lmdas)} lambdas")
+            lm_d = float(np.max(np.abs(strm.lmdas / hbm.lmdas - 1)))
+            b_d = float(np.max(np.abs(strm.betas.toarray()
+                                      - hbm.betas.toarray())))
+            i_d = float(np.max(np.abs(strm.intercepts - hbm.intercepts)))
+            phase("stream-vs-hbm-multi", f"{family} K={K} {name} f64 (n={n}"
+                  f" p={p}, {path['lmda_path_size']} lambdas to "
+                  f"{path.get('min_ratio', 1e-2):g}, tol {path['tol']:g}): "
+                  f"peak screen {max(hbm.screen_sizes)} groups, "
+                  f"{len(hbm.lmdas)} lambdas, CD sweeps "
+                  f"{sum(hbm.benchmark['cd_iters'])}, IRLS iterations "
+                  f"{sum(hbm.benchmark['irls_iters'])}, max lambda rel diff "
+                  f"{lm_d:.1e}, max beta diff {b_d:.3e}, max intercept diff "
+                  f"{i_d:.3e} (bars 1e-10, 1e-6), X.sweeps {Xs.sweeps}; "
+                  f"walls {hbm_s:.2f} s in device memory, {strm_s:.2f} s "
+                  f"streamed | {card}")
+            if lm_d > 1e-10 or b_d > 1e-6 or i_d > 1e-6:
+                fail(f"{what} streamed vs in-HBM: past the bars")
+
+
+def multi_cuda_vs_cpu_phase(ad, tk, pg):
+    """M5: ``data.dense(2000, 300, 60, K=...)`` in float64 on "cuda" and
+    on "cpu" (the kernels' twins): a multinomial of K = 3 classes (10
+    lambdas: the CPU twin of K6 is slow) and a multigaussian of K = 4
+    traits (30 lambdas); lambda, beta and the intercepts within 1e-8."""
+    import numpy as np
+
+    for family, K, L in (("multinomial", 3, 10), ("multigaussian", 4, 30)):
+        d = ad.data.dense(2000, 300, 60, K=K, glm=family, seed=17)
+        kw = dict(lmda_path_size=L)
+        zero_counts(tk.launches, pg.launches)
+        s_gpu = ad.grpnet(d["X"], d["glm"], device="cuda", **kw)
+        counts = {**tk.launches, **pg.launches}
+        t0 = time.perf_counter()
+        s_cpu = ad.grpnet(d["X"], d["glm"], device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        if s_gpu.error or s_cpu.error or len(s_gpu.lmdas) != len(s_cpu.lmdas):
+            fail(f"{family} cuda vs cpu: errors {s_gpu.error!r} "
+                 f"{s_cpu.error!r}, {len(s_gpu.lmdas)} vs "
+                 f"{len(s_cpu.lmdas)} lambdas")
+        lm_err = float(np.max(np.abs(s_gpu.lmdas / s_cpu.lmdas - 1)))
+        b_err = float(np.max(np.abs(s_gpu.betas.toarray()
+                                    - s_cpu.betas.toarray())))
+        i_err = float(np.max(np.abs(s_gpu.intercepts - s_cpu.intercepts)))
+        phase("multi-cuda-vs-cpu", f"{family} K={K}: data.dense(2000, 300, "
+              f"60) f64, {L} lambdas: launches {counts}, max lambda rel diff "
+              f"{lm_err:.1e}, max beta diff {b_err:.3e}, max intercept diff "
+              f"{i_err:.3e} (bars 1e-8; the CPU fit {cpu_s:.1f} s)")
+        if counts["pin_group_solve"] <= 0 or max(lm_err, b_err, i_err) > 1e-8:
+            fail(f"the card's {family} fit differs from the CPU path")
 
 
 def main():
@@ -2371,8 +2937,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. the headline fit (warm-up, then the timed main-path fit)
-    X, y, signal5 = headline_problem(40000, 2000, 60, seed=0,
-                                     with_signal=True)
+    X, y, signal5, nz5 = headline_problem(40000, 2000, 60, seed=0,
+                                          with_signal=True)
     Xm = ad.matrix.dense(X, device="cuda")
     kw = dict(lmda_path_size=100, min_ratio=1e-2, intercept=False,
               early_exit=False, device="cuda")
@@ -2610,6 +3176,13 @@ def main():
     gram_peak_phase(card)
     glm_counts = glm_dense_phases(ad, card, tk, pg, X, signal5)
     glm_cuda_vs_cpu_phase(ad, tk, pg)
+    # M1, M0 and M5: multi-response fits on X (x) I_K, dense
+    glm_counts["multinomial"], st_m1 = multi_dense_phase(ad, card, tk, pg,
+                                                         X, nz5)
+    kron_block_phase(card, st_m1)
+    del st_m1
+    torch.cuda.empty_cache()
+    multi_cuda_vs_cpu_phase(ad, tk, pg)
     del X, y, signal5
     torch.cuda.empty_cache()
 
@@ -2678,6 +3251,9 @@ def main():
           f"{k3_path_ms / (wall9 * 1e3):.2f} of the path's wall | {card}")
     # G5: the case-control GWAS on the same panel
     glm_counts["gwas-logistic"] = glm_gwas_phase(ad, card, tk, sk, Xm9, io9)
+    # M2: the multi-trait GWAS on the same panel
+    glm_counts["gwas-multi"] = multi_gwas_phase(ad, card, tk, pg, sk, Xm9,
+                                                io9)
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()
@@ -2868,6 +3444,8 @@ def main():
     phase("stream-vs-hbm", f"GWAS streamed fit wall {wall13:.3f} s against "
           f"in-HBM {wall9:.3f} s | {card}")
     del st9, st13, s11s
+    # M4: multi-response snpdat fits, streamed against in device memory
+    multi_stream_vs_hbm_phase(ad, card, io11)
     torch.cuda.empty_cache()
 
     # 14. the north star: 1M SNPs x 100K samples streamed from host memory
@@ -2971,6 +3549,9 @@ def main():
     # G6: the streamed case-control GWAS on the same panel
     glm_counts["north-star-logistic"] = glm_north_star_phase(
         ad, card, tk, sk, Xm14, io14)
+    # M3: the streamed multi-trait north star on the same panel
+    glm_counts["north-star-multi"] = multi_north_star_phase(
+        ad, card, tk, pg, sk, Xm14, io14, copy_s)
     del Xm14, io14, st14
     torch.cuda.empty_cache()
 

@@ -147,9 +147,23 @@ def test_fixed_cumsum_is_a_cumsum(n):
 
 
 def test_multi_response_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-response"):
-        ta.data.dense(20, 6, 3, K=2, glm="multinomial")
-    with pytest.raises(NotImplementedError, match="multi-response"):
+    """Multi-response responses are ported: ``data.dense(K=2,
+    glm="multinomial")`` and ``data.snp_unphased(K=2,
+    glm="multigaussian")`` give the JAX package's arrays.  Refused: K > 1
+    for a single-response GLM, and the SNP multigaussian at K = 1, whose
+    (n,) response is no (n, K) one (the JAX package fails there too)."""
+    for gen, args, kw in ((ja.data.dense, (20, 6, 3), dict(glm="multinomial")),
+                          (ja.data.snp_unphased, (20, 6),
+                           dict(glm="multigaussian"))):
+        dj = gen(*args, K=2, seed=2, **kw)
+        dt = getattr(ta.data, gen.__name__)(*args, K=2, seed=2, **kw)
+        np.testing.assert_array_equal(dt["X"], dj["X"])
+        np.testing.assert_array_equal(dt["glm"].y.numpy(),
+                                      np.asarray(dj["glm"].y))
+        assert dt["glm"].y.shape == (20, 2) and dt["glm"].is_multi
+    with pytest.raises(ValueError, match="multi-response"):
+        ta.data.dense(20, 6, 3, K=2, glm="binomial")
+    with pytest.raises(ValueError, match=r"\(n, K\)"):
         ta.data.snp_unphased(20, 6, glm="multigaussian")
 
 

@@ -52,8 +52,11 @@ def test_dense_generator_matches_jax(equal_groups):
     for key in ("groups", "group_sizes", "penalty"):
         np.testing.assert_array_equal(dt[key], dj[key])
     assert dt["X"].flags.f_contiguous
-    with pytest.raises(NotImplementedError, match="multi-response"):
-        ta.data.dense(50, 40, 12, K=2, glm="multinomial")
+    # K = 2 classes: the multinomial response of the same draws
+    dj = ja.data.dense(50, 40, 12, K=2, glm="multinomial", **kw)
+    dt = ta.data.dense(50, 40, 12, K=2, glm="multinomial", **kw)
+    np.testing.assert_array_equal(dt["X"], dj["X"])
+    np.testing.assert_array_equal(dt["glm"].y.numpy(), np.asarray(dj["glm"].y))
 
 
 # --------------------------------------------------------------------------- #

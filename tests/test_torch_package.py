@@ -209,8 +209,9 @@ def test_matmul_precision_maps_to_tf32(name, tf32):
 
 def test_unported_inputs_raise():
     """Groups of size > 1 are ported: ``groups=[0, 2, 4]`` fits as the JAX
-    package does (the bars of test_torch_grpnet.py).  Multi-response GLMs
-    raise."""
+    package does (the bars of test_torch_grpnet.py), and so are
+    multi-response GLMs: the multigaussian of two responses in the same
+    groups, at the bars of test_torch_multi.py.  Constraints raise."""
     import adelie_tpu as ja
     from test_torch_grpnet import _assert_same_path
 
@@ -221,10 +222,17 @@ def test_unported_inputs_raise():
     js = ja.grpnet(X, ja.glm.gaussian(y), **kw)
     ts = ta.grpnet(X, ta.glm.gaussian(y), device="cpu", **kw)
     _assert_same_path(js, ts)
-    glm = ta.glm.gaussian(y)
-    glm.is_multi = True
-    with pytest.raises(NotImplementedError, match="multi-response"):
-        ta.grpnet(X, glm, device="cpu")
+    Y = np.stack([y, X[:, 4] - y], 1)
+    js = ja.grpnet(X, ja.glm.multigaussian(Y), **kw)
+    ts = ta.grpnet(X, ta.glm.multigaussian(Y), device="cpu", **kw)
+    assert js.error == ts.error == "" and len(ts.lmdas) == len(js.lmdas)
+    np.testing.assert_allclose(ts.lmdas, js.lmdas, rtol=1e-10)
+    np.testing.assert_allclose(ts.betas.toarray(), js.betas.toarray(),
+                               atol=1e-6)
+    np.testing.assert_allclose(ts.intercepts, js.intercepts, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="constraints"):
+        ta.grpnet(X, ta.glm.multigaussian(Y), constraints=[object()] * 3,
+                  device="cpu")
 
 
 def test_dense_matrix_products_match_numpy():

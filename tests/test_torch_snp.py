@@ -231,8 +231,12 @@ def test_simulators_give_the_jax_packages_arrays():
     t = ta.data.snp_phased_ancestry(40, 6, 3, seed=8)
     for k in ("X", "ancestries", "y", "groups", "group_sizes", "penalty"):
         np.testing.assert_array_equal(t[k], j[k])
-    with pytest.raises(NotImplementedError, match="multi-response"):
-        ta.data.snp_unphased(10, 3, K=2, glm="multinomial")
+    # K = 2 classes: the multinomial response and the (p, K) beta
+    j = ja.data.snp_unphased(10, 3, K=2, glm="multinomial", seed=8)
+    t = ta.data.snp_unphased(10, 3, K=2, glm="multinomial", seed=8)
+    for k in ("X", "y", "beta"):
+        np.testing.assert_array_equal(t[k], j[k])
+    assert t["beta"].shape == (3, 2)
 
 
 # --------------------------------------------------------------------------- #
