@@ -16,6 +16,10 @@ or on a packed SNP matrix (``io``,
 memory or, for a panel larger
 than the card, streamed from host memory (``snp_unphased(streaming=True)``);
 its gradients are the decode-matmul kernels of ``matrix/snp_kernels.py``.
+The covariance method (``gaussian_cov`` on the covariance matrices of
+``matrix``) runs the same pin solves; the standalone solvers ``bvls`` and
+``pinball`` run their fits in the screened coordinate-descent kernel of
+``solver/screened_cd_kernels.py``, and ``css_cov`` selects column subsets.
 ROADMAP.md lists what comes next.
 """
 
@@ -24,7 +28,8 @@ __version__ = "0.1.0"
 from . import bcd, data, glm, io, matrix, solver, state
 from .configs import configs, set_configs
 from .logger import logger, logger_level
-from .solver import grpnet
+from .solver import bvls, css_cov, gaussian_cov, grpnet, pinball
 
-__all__ = ["bcd", "configs", "data", "glm", "grpnet", "io", "logger",
-           "logger_level", "matrix", "set_configs", "solver", "state"]
+__all__ = ["bcd", "bvls", "configs", "css_cov", "data", "gaussian_cov",
+           "glm", "grpnet", "io", "logger", "logger_level", "matrix",
+           "pinball", "set_configs", "solver", "state"]

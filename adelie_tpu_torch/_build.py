@@ -29,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "adelie_tpu_torch"
 SOURCES = (CSRC_DIR / "pin_kernels.cu", CSRC_DIR / "pin_group_kernels.cu",
-           CSRC_DIR / "snp_kernels.cu")
+           CSRC_DIR / "snp_kernels.cu", CSRC_DIR / "screened_cd_kernels.cu")
 # included by the sources: part of the library's hash, never compiled alone
 HEADERS = (CSRC_DIR / "async_copy.cuh",)
 # -fmad=false: no contraction of a*b+c into one rounding, so every
@@ -210,8 +210,15 @@ def _bind(lib) -> None:
         f = getattr(lib, f"adelie_snp_mul_many_{suffix}")
         f.argtypes = [ptr] * 4 + [c_int64] * 4 + [ptr]
         f.restype = c_int
+        # (13 pointers, S, mode, loss, tol_scale, max_iters, iters0, stream)
+        f = getattr(lib, f"adelie_screened_cd_solve_{suffix}")
+        f.argtypes = [ptr] * 13 + [c_int, c_int, real, real, c_int, c_int,
+                                   ptr]
+        f.restype = c_int
     lib.adelie_pin_lasso_solve_resident_rows.argtypes = [c_int, c_int]
     lib.adelie_pin_lasso_solve_resident_rows.restype = c_int
+    lib.adelie_screened_cd_in_smem.argtypes = [c_int, c_int]
+    lib.adelie_screened_cd_in_smem.restype = c_int
     lib.adelie_snp_mul_many_cols.argtypes = [c_int64]
     lib.adelie_snp_mul_many_cols.restype = c_int64
     lib.adelie_cuda_error_string.argtypes = [c_int]

@@ -19,6 +19,9 @@ class Configs:
     # hessian_min = 1e-24); float32 fits floor at hessian_min_f32.
     hessian_min: float = 1e-24
     hessian_min_f32: float = 1e-12
+    # Cap on the standalone solvers' bounds and penalties (reference:
+    # 1e100).
+    max_solver_value: float = 1e100
     # A group update whose ||dbeta||^2 <= dbeta_tol^2 q is skipped, for
     # groups of size q > 1 (reference configs.hpp: dbeta_tol = 1e-12).
     dbeta_tol: float = 1e-12

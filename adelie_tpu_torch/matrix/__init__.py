@@ -1,20 +1,33 @@
 """Matrix factories mirroring ``adelie_tpu.matrix``: dense, packed SNP in
-device memory, packed SNP streamed from host memory, and the wrappers the
-multi-response problem is built of (``concatenate``, ``kronecker_eye``)."""
+device memory, packed SNP streamed from host memory, the wrappers the
+multi-response problem is built of (``concatenate``, ``kronecker_eye``),
+the covariance method's matrices (``dense``, ``eager_cov``, ``lazy_cov``,
+``block_diag`` and ``sparse`` with ``method="cov"``) and the constraint
+matrices (``dense`` and ``sparse`` with ``method="constraint"``)."""
 
-from ..configs import configs
+from ..configs import configs, matmul_precision
 from ..device import resolve_device
+from ..utils import types
+from ._constraint_mat import MatrixConstraintDense, MatrixConstraintSparse
 from ._snp import MatrixNaiveSNPPhasedAncestry, MatrixNaiveSNPUnphased
 from ._snp_stream import MatrixNaiveSNPUnphasedStreamed
-from .base import MatrixNaiveBase
-from .dense import MatrixNaiveDense
-from .wrappers import MatrixNaiveCConcatenate, MatrixNaiveKroneckerEye
+from ._sparse import MatrixCovSparse
+from .base import MatrixConstraintBase, MatrixCovBase, MatrixNaiveBase
+from .dense import MatrixCovDense, MatrixCovLazy, MatrixNaiveDense, _as_tensor
+from .wrappers import (MatrixCovBlockDiag, MatrixNaiveCConcatenate,
+                       MatrixNaiveKroneckerEye)
 
-__all__ = ["MatrixNaiveBase", "MatrixNaiveCConcatenate", "MatrixNaiveDense",
+__all__ = ["MatrixConstraintBase", "MatrixConstraintDense",
+           "MatrixConstraintSparse", "MatrixCovBase", "MatrixCovBlockDiag",
+           "MatrixCovDense", "MatrixCovLazy", "MatrixCovSparse",
+           "MatrixNaiveBase", "MatrixNaiveCConcatenate", "MatrixNaiveDense",
            "MatrixNaiveKroneckerEye", "MatrixNaiveSNPPhasedAncestry",
            "MatrixNaiveSNPUnphased", "MatrixNaiveSNPUnphasedStreamed",
-           "concatenate", "dense", "kronecker_eye", "snp_phased_ancestry",
-           "snp_unphased"]
+           "block_diag", "concatenate", "dense", "eager_cov",
+           "kronecker_eye", "lazy_cov", "snp_phased_ancestry",
+           "snp_unphased", "sparse"]
+
+_STRUCTURED = "ROADMAP.md: structured matrices and user matrices"
 
 
 def _naive(mat, device):
@@ -31,17 +44,78 @@ def _naive(mat, device):
 def dense(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
           copy: bool = False, device=None):
     """Dense matrix on ``device`` (default ``"cuda"``, which raises without
-    a GPU: pass ``device="cpu"`` for the CPU).  Only ``method="naive"`` is
-    ported.  ``copy=False`` lets a CPU matrix share the memory of a numpy
-    array of its dtype, as the reference's matrices view theirs;
-    ``copy=True`` always copies.  ``n_threads`` is accepted for the JAX
-    package's signature and ignored."""
-    if method != "naive":
-        raise NotImplementedError(
-            f"dense(method={method!r}) is not ported yet (ROADMAP.md: "
-            "the covariance method)"
-        )
+    a GPU: pass ``device="cpu"`` for the CPU): an (n, p) matrix
+    (``method="naive"``), a (p, p) covariance matrix (``"cov"``; a tensor
+    ``mat`` stays on its device unless ``device`` is given) or an (m, d)
+    constraint matrix (``"constraint"``).  ``copy=False`` lets a CPU matrix
+    share the memory of a numpy array of its dtype, as the reference's
+    matrices view theirs; ``copy=True`` always copies.  ``n_threads`` is
+    accepted for the JAX package's signature and ignored."""
+    method = types.matrix_method(method)
+    if method == "cov":
+        return MatrixCovDense(mat, dtype=dtype, device=device, copy=copy)
+    if method == "constraint":
+        return MatrixConstraintDense(mat, dtype=dtype, device=device,
+                                     copy=copy)
     return MatrixNaiveDense(mat, dtype=dtype, device=device, copy=copy)
+
+
+def block_diag(mats, *, method: str = "naive", n_threads: int = 1,
+               device=None):
+    """Block-diagonal covariance matrix of ``mats`` (reference
+    matrix.py:198), ``method="cov"``: each array among them becomes a dense
+    covariance matrix on ``device`` (default: the device of the matrices
+    among them, else ``"cuda"``).  The naive block-diagonal matrix is not
+    ported.  ``n_threads`` is accepted for the JAX package's signature and
+    ignored."""
+    method = types.matrix_method(method)
+    if method == "naive":
+        raise NotImplementedError(
+            f"block_diag(method='naive') is not ported yet ({_STRUCTURED})")
+    if method == "constraint":
+        raise ValueError(
+            "method 'constraint' is not supported for block_diag")
+    if device is None:
+        device = next((m.device for m in mats
+                       if isinstance(m, MatrixCovBase)), None)
+    return MatrixCovBlockDiag([
+        m if isinstance(m, MatrixCovBase)
+        else dense(m, method="cov", device=device) for m in mats])
+
+
+def eager_cov(mat, *, n_threads: int = 1, device=None):
+    """The Gram matrix ``A = X^T X`` of an (n, p) array or tensor, formed
+    on ``device`` (default ``"cuda"``; a tensor's own device when it is
+    None) as one product (reference matrix.py:683).  ``n_threads`` is
+    accepted for the JAX package's signature and ignored."""
+    X, _ = _as_tensor(mat, None, device)
+    with matmul_precision():
+        A = X.T @ X
+    return MatrixCovDense(A)
+
+
+def lazy_cov(mat, *, copy: bool = False, n_threads: int = 1, dtype=None,
+             device=None):
+    """The Gram matrix ``X^T X`` of an (n, p) array or tensor, its columns
+    formed as the solver asks for them (reference matrix.py:1000).  ``copy``
+    and ``n_threads`` are accepted for the JAX package's signature."""
+    return MatrixCovLazy(mat, dtype=dtype, device=device, copy=copy)
+
+
+def sparse(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
+           copy: bool = False, device=None):
+    """A sparse covariance matrix (``method="cov"``: its CSC arrays on
+    ``device``, default ``"cuda"``) or constraint matrix
+    (``"constraint"``), from anything ``scipy.sparse`` takes (reference
+    matrix.py:1301).  The naive sparse matrix is not ported.  ``copy`` and
+    ``n_threads`` are accepted for the JAX package's signature."""
+    method = types.matrix_method(method)
+    if method == "naive":
+        raise NotImplementedError(
+            f"sparse(method='naive') is not ported yet ({_STRUCTURED})")
+    if method == "cov":
+        return MatrixCovSparse(mat, dtype=dtype, device=device)
+    return MatrixConstraintSparse(mat, dtype=dtype, device=device)
 
 
 def snp_unphased(io, *, n_threads: int = 1, dtype=None, device=None,
@@ -83,8 +157,7 @@ def concatenate(mats, *, axis: int = 1, n_threads: int = 1, device=None):
     devices raise.  Only ``axis=1`` is ported."""
     if axis != 1:
         raise NotImplementedError(
-            f"concatenate(axis={axis}) is not ported yet (ROADMAP.md: "
-            "structured matrices and user matrices)")
+            f"concatenate(axis={axis}) is not ported yet ({_STRUCTURED})")
     if device is None:
         device = next((m.device for m in mats
                        if isinstance(m, MatrixNaiveBase)), None)

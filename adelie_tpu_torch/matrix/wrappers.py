@@ -1,8 +1,10 @@
-"""Composition wrappers: column concatenation and ``X (x) I_K``.
+"""Composition wrappers: column concatenation, ``X (x) I_K`` and the
+block-diagonal covariance matrix.
 
-Counterpart of ``MatrixNaiveCConcatenate`` and ``MatrixNaiveKroneckerEye``
-in ``adelie_tpu/matrix/wrappers.py`` (reference
-matrix_naive_concatenate.{hpp,ipp}, matrix_naive_kronecker_eye.{hpp,ipp}).
+Counterpart of ``MatrixNaiveCConcatenate``, ``MatrixNaiveKroneckerEye``
+and ``MatrixCovBlockDiag`` in ``adelie_tpu/matrix/wrappers.py`` (reference
+matrix_naive_concatenate.{hpp,ipp}, matrix_naive_kronecker_eye.{hpp,ipp},
+matrix_cov_block_diag).
 Each wrapper composes its children's products and lives on their device;
 children on different devices, or of different dtypes, raise.
 
@@ -17,9 +19,10 @@ tests.
 import numpy as np
 import torch
 
-from .base import MatrixNaiveBase
+from .base import MatrixCovBase, MatrixNaiveBase
 
-__all__ = ["MatrixNaiveCConcatenate", "MatrixNaiveKroneckerEye"]
+__all__ = ["MatrixCovBlockDiag", "MatrixNaiveCConcatenate",
+           "MatrixNaiveKroneckerEye"]
 
 
 def _common(mats):
@@ -177,3 +180,55 @@ class MatrixNaiveKroneckerEye(MatrixNaiveBase):
         W = self._like(w).reshape(n, K)
         return torch.stack([self._child.sq_mul(W[:, k].contiguous())
                             for k in range(K)], dim=1).reshape(-1)
+
+
+class MatrixCovBlockDiag(MatrixCovBase):
+    """Block-diagonal covariance matrix of its children (reference
+    matrix_cov_block_diag): child c holds the columns ``offsets[c] ..
+    offsets[c + 1]``.  A block is assembled on the device from the
+    children's blocks; the index bookkeeping stays on the host."""
+
+    def __init__(self, mats):
+        mats = list(mats)
+        if not mats:
+            raise ValueError("block_diag needs at least one matrix")
+        self._children = mats
+        self.dtype, self.torch_dtype, self.device = _common(mats)
+        self._offsets = np.concatenate(
+            [[0], np.cumsum([m.cols() for m in mats])]).astype(np.int64)
+        self._cols = int(self._offsets[-1])
+
+    def _child_of(self, idx):
+        return np.searchsorted(self._offsets, idx, side="right") - 1
+
+    def block(self, rows, cols):
+        rows, cols = _index_np(rows), _index_np(cols)
+        out = torch.zeros((len(rows), len(cols)), dtype=self.torch_dtype,
+                          device=self.device)
+        rc, cc = self._child_of(rows), self._child_of(cols)
+        for c in np.unique(np.concatenate([rc, cc])):
+            rpos = np.flatnonzero(rc == c)
+            cpos = np.flatnonzero(cc == c)
+            if len(rpos) == 0 or len(cpos) == 0:
+                continue
+            off = self._offsets[c]
+            blk = self._children[c].block(rows[rpos] - off, cols[cpos] - off)
+            r = torch.as_tensor(rpos, device=self.device)
+            k = torch.as_tensor(cpos, device=self.device)
+            out[r[:, None], k[None, :]] = blk
+        return out
+
+    def mul(self, indices, values):
+        indices = _index_np(indices)
+        values = torch.as_tensor(values, dtype=self.torch_dtype,
+                                 device=self.device)
+        out = torch.zeros(self._cols, dtype=self.torch_dtype,
+                          device=self.device)
+        cc = self._child_of(indices)
+        for c in np.unique(cc):
+            pos = np.flatnonzero(cc == c)
+            off = self._offsets[c]
+            out[off:self._offsets[c + 1]] = self._children[c].mul(
+                indices[pos] - off,
+                values[torch.as_tensor(pos, device=self.device)])
+        return out

@@ -9,6 +9,11 @@ gaussian with ``opt=False``) runs the IRLS path: ``GlmNaiveDriver`` or
 ``multinomial``) becomes one flattened problem on ``X (x) I_K``
 (``solver/multi.py``) that the same drivers run.  Constraints are a later
 slice of ROADMAP.md and raise ``NotImplementedError``.
+
+The covariance method (``gaussian_cov``, ``_cov.py``) runs the same pin
+solves on blocks of a covariance matrix; the standalone solvers are
+``bvls`` and ``pinball`` (``_bvls.py``, ``_pinball.py``: K7 of
+``screened_cd_kernels``) and ``css_cov`` (``_css.py``).
 """
 
 import traceback
@@ -22,12 +27,17 @@ from ..configs import configs
 from ..device import resolve_device
 from ..logger import logger
 from ..utils import types
+from ._bvls import bvls
+from ._cov import gaussian_cov
+from ._css import css_cov
+from ._pinball import pinball
 from .gaussian import GaussianNaiveDriver, GaussianNaiveState
 from .glm_driver import GlmNaiveDriver, GlmNaiveState
 from .multi import build_multi_problem, finalize_multi
 from .streamed import StreamedGaussianDriver, StreamedGlmDriver
 
-__all__ = ["grpnet", "finalize_state"]
+__all__ = ["bvls", "css_cov", "finalize_state", "gaussian_cov", "grpnet",
+           "pinball"]
 
 
 def _as_matrix(X, device):

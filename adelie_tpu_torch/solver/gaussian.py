@@ -15,7 +15,7 @@ import torch
 from ..configs import configs
 from ..exceptions import MaxCDsError
 from ..utils import Stopwatch, large_lmda
-from .basil import compute_lmda_max, compute_lmda_path, screen
+from .basil import chunked_path
 from .fused import ChunkCarry, full_kkt, gaussian_chunk_step
 from .state_core import NaiveStateBase
 
@@ -157,67 +157,4 @@ class GaussianNaiveDriver:
 
     def solve_path(self, progress_bar=False, exit_cond=None):
         """Chunked BASIL loop (replaces basil.solve_core for gaussian)."""
-        s = self.s
-        sw = Stopwatch().start()
-        if exit_cond is not None:
-            # user exit conditions are evaluated per lambda
-            s.lmda_chunk = 1
-        exit_cond = exit_cond or (lambda *a: False)
-
-        # --- lmda_max setup ---
-        if s.setup_lmda_max and s.lmda_max is None:
-            self._run_chunk([self.large_lmda()], record=False)
-            s.lmda_max = compute_lmda_max(s.abs_grad, s.alpha, s.penalty)
-
-        if s.setup_lmda_path and s.lmda_path is None:
-            if s.lmda_path_size <= 0:
-                s.total_time = sw.elapsed()
-                return s
-            s.lmda_path = compute_lmda_path(
-                s.lmda_max, s.min_ratio, s.lmda_path_size
-            )
-        path = np.asarray(s.lmda_path, float)
-
-        # --- lambdas above lmda_max (all-accept fits; record them) ---
-        large_count = int(np.searchsorted(-path, -s.lmda_max))
-        if large_count or s.setup_lmda_max:
-            # record the path entries above lmda_max, then position the
-            # state at lmda_max without recording (solver_base.hpp:540-595)
-            seg = list(path[:large_count])
-            Cc = int(s.lmda_chunk)
-            for i in range(0, len(seg), Cc):
-                _, early, _ = self._run_chunk(seg[i:i + Cc], record=True)
-                if early or exit_cond(s):
-                    s.total_time = sw.elapsed()
-                    return s
-            self._run_chunk([s.lmda_max], record=False)
-
-        idx = large_count
-        kkt_passed = True
-        n_new_active = 0
-        current_active = s.active_set_size
-
-        # --- chunked BASIL iterations ---
-        while idx < len(path):
-            C = min(int(s.lmda_chunk), len(path) - idx)
-            chunk = path[idx:idx + C]
-            lmda_prev = path[idx + C - 2] if C > 1 else s.lmda
-            sw_p = Stopwatch().start()
-            screen(s, chunk[-1], kkt_passed, n_new_active,
-                   lmda_prev=lmda_prev, lmda_fallback=chunk[0],
-                   chunk_size=C)
-            s.benchmark["screen"].append(sw_p.elapsed())
-
-            n_acc, early, kkt_clean = self._run_chunk(chunk, record=True)
-            idx += n_acc
-            # budget-frozen chunks with every processed lambda accepted are
-            # not KKT failures: screening must not union in the strong set
-            kkt_passed = kkt_clean
-            if n_acc:
-                n_new_active = s.active_set_size - current_active
-                current_active = s.active_set_size
-            if early or exit_cond(s):
-                break
-
-        s.total_time = sw.elapsed()
-        return s
+        return chunked_path(self, exit_cond)

@@ -143,8 +143,13 @@ def screen_eigh(A, slot_begin, slot_size, qmax: int):
     blocks = torch.where(mask[:, :, None] & mask[:, None, :], blocks,
                          torch.zeros((), dtype=A.dtype, device=A.device))
     lam, V = torch.linalg.eigh(blocks)
+    # an invalid slot's block is all zeros, whose eigenvalues the card's
+    # batched eigh has returned as NaN: they are set to 0, as the CPU gives
+    # them (the pin solves take max |eigvals| for their tolerance floor)
+    lam = torch.where(mask[:, :1], torch.clamp(lam, min=0.0),
+                      torch.zeros((), dtype=A.dtype, device=A.device))
     # eigh on the card returns column-major blocks; K6 reads row-major ones
-    return torch.clamp(lam, min=0.0), V.contiguous()
+    return lam, V.contiguous()
 
 
 # --------------------------------------------------------------------------- #

@@ -48,6 +48,25 @@ def screen_cap(n: int) -> int:
     return cap + (-cap) % 4
 
 
+def screen_layout(state):
+    """The slot layout of the screen set: ``(begins, sizes, S_val, cols,
+    qmax, S_cap, G_cap)``, the groups' first slots and sizes, the values
+    they hold, their columns, the padded block width and the capacities."""
+    ss = state.screen_set
+    gs = state.group_sizes[ss]
+    begins = np.concatenate([[0], np.cumsum(gs)])[:-1]
+    S_val = int(begins[-1] + gs[-1]) if len(ss) else 0
+    cols = np.concatenate(
+        [np.arange(state.groups[g], state.groups[g] + state.group_sizes[g])
+         for g in ss]
+    ).astype(np.int64) if len(ss) else np.zeros(0, np.int64)
+    qmax = bucket_pow2(int(gs.max())) if len(ss) else 1
+    # a qmax margin so a group's block never runs off the end
+    S_cap = screen_cap(S_val + qmax)
+    G_cap = bucket(len(ss), configs.group_cap_min)
+    return begins, gs, S_val, cols, qmax, S_cap, G_cap
+
+
 class ScreenCache:
     """Device-resident derived quantities of the current screen set.
 
@@ -151,19 +170,7 @@ class ScreenCache:
 
     def _full_rebuild_structure(self, state):
         ss = state.screen_set
-        gs = state.group_sizes[ss]
-        begins = np.concatenate([[0], np.cumsum(gs)])[:-1]
-        S_val = int(begins[-1] + gs[-1]) if len(ss) else 0
-        cols = np.concatenate(
-            [np.arange(state.groups[g], state.groups[g] + state.group_sizes[g])
-             for g in ss]
-        ).astype(np.int64) if len(ss) else np.zeros(0, np.int64)
-
-        qmax = bucket_pow2(int(gs.max())) if len(ss) else 1
-        # a qmax margin so a group's block never runs off the end
-        S_cap = screen_cap(S_val + qmax)
-        G_cap = bucket(len(ss), configs.group_cap_min)
-
+        begins, gs, S_val, cols, qmax, S_cap, G_cap = screen_layout(state)
         self._gather_all(state, cols, S_cap)
         self.cols = cols
         self.S_val, self.S_cap, self.G_cap, self.qmax = S_val, S_cap, G_cap, qmax

@@ -5,8 +5,9 @@ adelie_core/util/types.hpp), so a typo'd ``screen_rule`` fails at
 
 from __future__ import annotations
 
-__all__ = ["Option", "bcd_solver", "binomial_link", "newton_method",
-           "read_mode", "screen_rule", "tie_method"]
+__all__ = ["Option", "bcd_solver", "binomial_link", "css_loss",
+           "css_method", "matrix_method", "newton_method", "read_mode",
+           "screen_rule", "tie_method"]
 
 
 class Option:
@@ -53,6 +54,10 @@ screen_rule = Option("screen_rule", ("strong", "pivot"))
 # --- cox ties (reference util/types.hpp tie_method_type) ---
 tie_method = Option("tie_method", ("efron", "breslow"))
 
+# --- column subset selection (reference solver.py:1274 css_cov) ---
+css_method = Option("method", ("greedy", "swapping"))
+css_loss = Option("loss", ("least_squares", "subset_factor", "min_det"))
+
 # --- binomial links (reference glm.py:83-199) ---
 binomial_link = Option("link", ("logit", "probit"))
 
@@ -68,3 +73,6 @@ bcd_solver = Option(
 
 # --- SNP IO read mode (reference io/io_snp_base.hpp read_mode_type) ---
 read_mode = Option("read_mode", ("file", "mmap"), aliases={"auto": "mmap"})
+
+# --- matrix factory dispatch (reference matrix.py factories) ---
+matrix_method = Option("method", ("naive", "cov", "constraint"))

@@ -35,6 +35,15 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     every case; each case's finds at the cap, cycle exits, Newton steps
     run and time per update beside the chain's floor (every update 0) in
     float32 at S = 1024 and 4096 and float64 at 1024;
+4c. K7 ``screened_cd_solve`` (BVLS's and pinball's whole screened fit)
+    against its twin on the CPU on copies of the same inputs, bit-equal
+    (beta, grad, flags, loss, sweeps, moves): float32 and float64, box
+    and pinball, S in {64, 1000, 2048, 8192}
+    (float64 at 8,192 with its
+    vectors in global memory), from a cold and a warm start, with invalid
+    slots, a d = 0 slot and a Q whose triangles differ; each case's time
+    per update and per moving update beside its bound, and the floor
+    (every delta 0) in float32 at S = 1000 and 8192;
 5. the headline fit: ``grpnet(X, glm.gaussian(y))`` on "cuda" at
    n = 40,000, p = 2,000, 100 lambdas, float32 (bench.py's problem), with a
    per-lambda KKT check in numpy float64, and one more fit under
@@ -154,7 +163,7 @@ Gram is formed one class at a time from the child's columns):
 
 M1. the multinomial headline (after G7): phase 5's X, K = 3 classes
     drawn from softmax(X B) on its 60 true nonzero rows, intercept, 100
-    lambdas to 1e-2, no early exit: a profiled warm-up, two timed fits
+    lambdas to 1e-2, no early exit: a profiled warm-up and a timed fit
     (bit-equal); IRLS iterations per lambda, K1 and K6 launches, the
     KKT per lambda in float64 (``multi_kkt``: every zero group held; the
     nonzero groups' stationarity and the per-class intercept scores,
@@ -184,14 +193,51 @@ M3. the streamed multi-trait north star (after G6, on phase 14's panel
     there on the first tile against a tile's copy, the KKT from one plain
     float64 pass.
 
+The covariance method and the standalone solvers (C1-C3, A1-A4 after M5
+on phase 5's X and y; C4 after M2 on phase 9's panel):
+
+C1. ``gaussian_cov(eager_cov(X / sqrt(n)), X^T y / n)``, A formed on the
+    card, 100 lambdas to 1e-2, no early exit (phase 5's path): the dense
+    chunked path and K1; a warm-up, three timed fits (median wall; the
+    first two bit-equal), K1's launches, the KKT per lambda in float64
+    on v - A beta (zero groups held at 1e-2 lambda), beta's gap to phase
+    5's ``grpnet`` fit, one fit under ``torch.profiler``;
+C2. C1 in 500 groups of 4 (K6), its Newton counts;
+C3. ``lazy_cov(X / sqrt(n))`` through ``basil.solve_core`` a lambda at a
+    time against C1: lambdas, beta, the columns formed, the peak memory;
+C4. the summary-statistics GWAS: ``block_diag`` of 200 LD blocks of 1,000
+    consecutive standardized SNPs of phase 9's panel, each formed on the
+    card from decoded columns, v = X_std^T y / n, 50 lambdas to 5e-2: the
+    wall, K1 and K2 launches, peak memory, the KKT, the causal SNPs
+    found; the trait's 40 strong SNPs keep the screen small, so a
+    polygenic trait on the same blocks (200 causal SNPs, heritability
+    0.5, no early exit) takes it past 1024 (K2);
+A1. ``bvls`` as non-negative least squares on phase 5's X and y: a
+    warm-up whose every K7 call is replayed on the twin on the CPU
+    (bit-equal), three timed fits (the first two bit-equal), K7's
+    launches, the bounds' KKT in float64, and K7's time at the largest
+    replayed call beside its twin's and its bound (the kernels' line);
+A2. ``pinball`` with A (4,096, 1,024), S a Wishart from 4,096 samples,
+    penalties U(0.5, 1.5), seed 41, float64, tol 1e-12: one timed fit,
+    K7's launches, the objective against a float64 FISTA on the card;
+A3. ``css_cov`` on the correlation of phase 5's X: greedy least squares
+    (k = 100), swapping from it, greedy min-det (k = 100), greedy subset
+    factor (k = 20); walls, greedy's least-squares objective against
+    swapping's;
+A4. float64 on "cuda" and on "cpu": ``gaussian_cov`` on the dense (and
+    grouped), lazy, block-diagonal and sparse covariance matrices,
+    ``bvls``, ``pinball`` and ``css_cov`` (greedy and swapping, three
+    losses): lambdas 1e-10, beta 1e-8, subsets equal.
+
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
 first timed fit and read after it (K6), zeroed before phase 6's timed fit
 and read after it (K2), zeroed before phase 9 and read after it (K3),
 zeroed before phase 10 and read after it (K4; and before and after 10b's
 timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
-after it (K5, with no K3); each GLM and multi-response cell's, before and
-after its first timed fit.  Every kernel must have run on its path, and the kernels' JSON
+after it (K5, with no K3); each GLM, multi-response, covariance (C1-C4)
+and standalone-solver (A1, A2) cell's, before and after its first timed
+fit (C3's and C4's only fit).  Every kernel must have run on its path, and the kernels' JSON
 gives each kernel's launches on every path that ran it
 (``launches_by_path``).  Any failed phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
@@ -245,14 +291,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def host_ms(fn):
+def timed(run):
+    """(wall s, result) of ``run()`` between two synchronizations."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn()
+    out = run()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3, out
+    return time.perf_counter() - t0, out
+
+
+def host_ms(fn):
+    s, out = timed(fn)
+    return s * 1e3, out
 
 
 # --------------------------------------------------------------------------- #
@@ -1345,12 +1397,26 @@ def snp_grad(Xm, y, state, block=2048, resid_fn=None):
 
 
 def profile_fit(ad, Xm, y, glm=None, keep=None, **kw):
-    """One more fit under ``torch.profiler``: (wall s, device busy ms,
-    {kernel: (launches, device ms)}), busiest first.  The profiler has not
-    been tried on every machine, so a failure of its own (starting,
-    stopping, reading its table) is reported as ``None`` and the phase goes
-    on: it measures, it checks nothing.  The fit runs outside those guards,
-    so a fault of the port fails the phase."""
+    """One more ``grpnet`` fit under ``torch.profiler`` (``profile_run``);
+    its state goes to ``keep`` when given."""
+
+    def run():
+        wall, state = fit(ad, Xm, y, glm, **kw)
+        if keep is not None:
+            keep.append(state)
+        return wall
+
+    return profile_run(run)
+
+
+def profile_run(run):
+    """``run()`` under ``torch.profiler``: (wall s, device busy ms,
+    {kernel: (launches, device ms)}), busiest first; ``run`` returns its
+    wall, or anything else to be timed here.  The profiler has not been
+    tried on every machine, so a failure of its own (starting, stopping,
+    reading its table) is reported as ``None`` and the phase goes on: it
+    measures, it checks nothing.  The run is outside those guards, so a
+    fault of the port fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1363,9 +1429,12 @@ def profile_fit(ad, Xm, y, glm=None, keep=None, **kw):
     except (RuntimeError, AttributeError) as exc:
         return failed(exc)
     try:
-        wall, state = fit(ad, Xm, y, glm, **kw)
-        if keep is not None:
-            keep.append(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wall = run()
+        torch.cuda.synchronize()
+        if not isinstance(wall, float):
+            wall = time.perf_counter() - t0
     finally:
         try:
             prof.stop()
@@ -2440,8 +2509,9 @@ def multi_dense_phase(ad, card, tk, pg, X, nz):
     """M1: the multinomial headline.  The headline's X (n = 40,000, p =
     2,000, f32), K = 3 classes drawn from softmax(X B) on its 60 true
     nonzero rows, intercept, 100 lambdas to 1e-2, no early exit: a
-    profiled warm-up, two timed fits (bit-equal); IRLS iterations per
-    lambda, K1 and K6 launches, the KKT per lambda in float64.  Returns (launch counts of the first timed fit, its state:
+    profiled warm-up and a timed fit (bit-equal; two timed fits before
+    the covariance phases took their time); IRLS iterations per lambda,
+    K1 and K6 launches, the KKT per lambda in float64.  Returns (launch counts of the first timed fit, its state:
     M0 reads its last screen)."""
     import numpy as np
 
@@ -2452,7 +2522,7 @@ def multi_dense_phase(ad, card, tk, pg, X, nz):
               device="cuda")
     pg.reset_newton()
     st, walls, warm, counts, peak, prof = timed_fits(
-        ad, Xm, glm, (tk.launches, pg.launches), reps=2, profiled=True,
+        ad, Xm, glm, (tk.launches, pg.launches), reps=1, profiled=True,
         **kw)
     n, p = X.shape
     if (st.error or len(st.lmdas) != 100 or counts["pin_group_solve"] <= 0
@@ -2815,6 +2885,721 @@ def multi_cuda_vs_cpu_phase(ad, tk, pg):
             fail(f"the card's {family} fit differs from the CPU path")
 
 
+# --------------------------------------------------------------------------- #
+# the covariance method and the standalone solvers: K7, C1-C4, A1-A4          #
+# --------------------------------------------------------------------------- #
+
+
+def k7_problem(S, dtype, mode, seed, case="cold"):
+    """A screened problem for K7 on the card: Q = Z^T Z / n with n = 4 S
+    (eigenvalues in about [0.25, 2.25]), its upper triangle moved by a
+    relative 1e-7 so that Q is not symmetric (a kernel that read rows for
+    columns would part from the twin), the last three slots invalid and
+    slot 6's diagonal 0.  ``mode`` "box": bounds -U(0, 0.5) and U(0, 0.5),
+    every 13th lower bound 0 and every 11th upper bound 1e100; "pinball":
+    penalties U(0.5, 1.5) 0.05 max |grad|.  ``case``: "cold" (beta 0,
+    nothing active); "warm" (every seventh slot invalid as well, 30 % of the
+    valid slots given small coefficients inside the bounds and active, the
+    gradient moved to match); "floor" (box bounds 0 and 0 at beta 0: every
+    update clips to 0, so no delta is nonzero: the chain with no AXPY).
+    Returns ``screened_cd_solve``'s arguments with ``Q`` the transpose of a
+    contiguous tensor (the layout K7 reads, so no copy is timed)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    n = 4 * S
+    Z = torch.randn((n, S), generator=gen, dtype=torch.float64, device=DEV)
+    b_true = torch.where(torch.rand(S, generator=gen, dtype=torch.float64,
+                                    device=DEV) < 0.2,
+                         torch.randn(S, generator=gen, dtype=torch.float64,
+                                     device=DEV), 0.0)
+    y = Z @ b_true + 0.5 * torch.randn(n, generator=gen, dtype=torch.float64,
+                                       device=DEV)
+    Q = Z.T @ Z / n
+    g = Z.T @ y / n
+    del Z, y
+    Q += torch.triu(Q * 1e-7 * torch.randn((S, S), generator=gen,
+                                           dtype=torch.float64, device=DEV),
+                    1)
+    valid = np.ones(S, bool)
+    valid[-3:] = False
+    diag = torch.diagonal(Q).clone()
+    diag[6] = 0.0
+    if mode == "box":
+        lo = -rng.uniform(0.0, 0.5, S)
+        hi = rng.uniform(0.0, 0.5, S)
+        lo[::13] = 0.0
+        hi[::11] = 1e100
+    else:
+        scale = 0.05 * float(g.abs().max())
+        lo = scale * rng.uniform(0.5, 1.5, S)
+        hi = scale * rng.uniform(0.5, 1.5, S)
+    beta0 = np.zeros(S)
+    if case == "warm":
+        valid[5::7] = False
+        b = 0.05 * rng.standard_normal(S)
+        if mode == "box":
+            b = np.clip(b, lo, hi)
+        beta0 = np.where(valid & (rng.random(S) < 0.3), b, 0.0)
+        g = g - Q @ torch.as_tensor(beta0, device=DEV)
+    elif case == "floor":
+        lo = np.zeros(S)
+        hi = np.zeros(S)
+    dev = dict(device=DEV)
+    Qt = Q.to(dtype).T.contiguous()
+    return (Qt.T, diag.to(dtype), torch.as_tensor(beta0, dtype=dtype, **dev),
+            g.to(dtype), torch.as_tensor(lo, dtype=dtype, **dev),
+            torch.as_tensor(hi, dtype=dtype, **dev),
+            torch.as_tensor(valid, **dev),
+            torch.as_tensor(beta0 != 0, **dev), 0.5, 1e-9, 100000, 0, mode)
+
+
+def k7_bound(S, S_val, itemsize, moves, rows, updates):
+    """K7's bound: the valid part (S_val values) of each distinct column of
+    Q that moved read once (``rows``, counted by the twin), the vectors
+    in (diag, beta, grad, lo, hi; two flag arrays) and out (beta, grad;
+    the flags); an AXPY over the S_val valid slots a moving update."""
+    return bound(rows * S_val * itemsize + 7 * S * itemsize + 3 * S + 48,
+                 2 * S_val * moves + 10 * updates)
+
+
+def k7_same(what, out_k, out_t):
+    """K7's results against the twin's: beta, grad and flags bit-equal,
+    info (loss, iters, converged, moves, updates) equal."""
+    for name, x, y in zip(("beta", "grad", "active"), out_k[:3], out_t[:3]):
+        if not same_bits(x.cpu(), y):
+            err = float((x.cpu().double() - y.double()).abs().max()) \
+                if x.dtype.is_floating_point else -1.0
+            fail(f"{what}: {name} differs from the twin (max |diff| "
+                 f"{err:.3e})")
+    if out_k[3].tolist() != out_t[3].tolist():
+        fail(f"{what}: info {out_k[3].tolist()} against the twin's "
+             f"{out_t[3].tolist()}")
+
+
+def k7_case(S, dtype, mode, seed, case="cold", reps=5):
+    """K7 against its twin on the CPU on copies of the same inputs, and
+    K7's time (CUDA events) beside the twin's, the Gram's transposition
+    and the bound."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    what = f"K7 {mode} S={S} {dtype} {case}"
+    args = k7_problem(S, dtype, mode, seed, case)
+    ms = cuda_ms(lambda: kc.screened_cd_solve(*args), reps=reps)
+    t_ms = cuda_ms(lambda: args[0].contiguous(), reps=reps)
+    out_k = kc.screened_cd_solve(*args)
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    t0 = time.perf_counter()
+    moved = np.zeros(S, bool)
+    out_t = kc.screened_cd_solve_ref(*cpu, moved=moved)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k7_same(what, out_k, out_t)
+    loss, iters, done, moves, updates = out_k[3].tolist()
+    rows = int(moved.sum())
+    if case != "floor" and (done != 1.0 or moves <= 0):
+        fail(f"{what}: not converged ({iters} sweeps, {moves} moves)")
+    if case == "floor" and moves != 0:
+        fail(f"{what}: {moves} moves on the floor problem")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    S_val = int(args[6].sum())
+    b_ms, b_by = k7_bound(S, S_val, itemsize, moves, rows, updates)
+    return dict(S=S, dtype=str(dtype), mode=mode, case=case, ms=ms,
+                plain_ms=plain_ms, transpose_ms=t_ms, iters=int(iters),
+                moves=int(moves), updates=int(updates), rows=int(rows),
+                S_val=S_val,
+                us_per_update=ms * 1e3 / max(updates, 1),
+                us_per_move=ms * 1e3 / max(moves, 1), bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0)
+
+
+def k7_phase(card):
+    """K7 bit-equal to its twin in 32 cases (float32 and float64, box and
+    pinball, S in {64, 1000, 2048, 8192}, cold and warm), then the floor
+    (every delta 0) in float32 at S = 1000 and 8192.  Returns the cases."""
+    import torch
+
+    from adelie_tpu_torch import _build
+
+    lib = _build.load()
+    out = []
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        for mode in ("box", "pinball"):
+            for S in (64, 1000, 2048, 8192):
+                for case in ("cold", "warm"):
+                    r = k7_case(S, dtype, mode, seed=S + len(out), case=case,
+                                reps=3 if S >= 2048 else 10)
+                    r["in_smem"] = lib.adelie_screened_cd_in_smem(
+                        S, torch.empty((), dtype=dtype).element_size())
+                    out.append(r)
+                    phase("K7", f"{mode} S={S} {r['dtype']} {case}"
+                          f"{'' if r['in_smem'] else ' (vectors in global memory)'}"
+                          f": bit-equal to the twin, {r['iters']} sweeps, "
+                          f"{r['moves']} moves ({r['rows']} distinct "
+                          f"slots of {r['S_val']} valid) of {r['updates']} "
+                          f"updates; "
+                          f"{r['ms']:.3f} ms ({r['us_per_update']:.3f} us an "
+                          f"update, {r['us_per_move']:.3f} a move; the twin "
+                          f"{r['plain_ms']:.0f} ms), bound {r['bound_ms']:.4f}"
+                          f" ms ({r['bound_by']}), Q's transposition "
+                          f"{r['transpose_ms']:.3f} ms")
+    for S in (1000, 8192):
+        r = k7_case(S, torch.float32, "box", seed=5, case="floor", reps=10)
+        out.append(r)
+        phase("K7", f"floor S={S} float32: {r['updates']} updates, none "
+              f"moving, {r['ms']:.4f} ms ({r['us_per_update']:.4f} us an "
+              f"update) | {card}")
+    phase("K7", f"{len(out)} cases bit-equal in {time.perf_counter() - t0:.1f}"
+          f" s | {card}")
+    return out
+
+
+def k7_kept(run):
+    """``run()`` with every K7 call of ``screened_cd_fit`` kept: a copy of
+    its inputs on the CPU and its results.  Returns (run's result,
+    calls)."""
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    inner = kc.screened_cd_solve
+    calls = []
+
+    def kept(*args):
+        held = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        out = inner(*args)
+        calls.append((held, [o.cpu() for o in out]))
+        return out
+
+    kc.screened_cd_solve = kept
+    try:
+        return run(), calls
+    finally:
+        kc.screened_cd_solve = inner
+
+
+def k7_replay(what, calls):
+    """Each kept K7 call through the twin on the CPU, bit-equal to the
+    kernel.  Returns one (S, twin ms, info, distinct slots moved) a
+    call."""
+    import numpy as np
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    out = []
+    for i, (args, res) in enumerate(calls):
+        moved = np.zeros(args[0].shape[0], bool)
+        t0 = time.perf_counter()
+        twin = kc.screened_cd_solve_ref(*args, moved=moved)
+        ms = (time.perf_counter() - t0) * 1e3
+        k7_same(f"{what}: K7 call {i} (S={args[0].shape[0]})", res, twin)
+        out.append((args[0].shape[0], ms, res[3].tolist(), int(moved.sum())))
+    return out
+
+
+def same_path(a, b):
+    """Two path states with bit-equal lambdas and coefficients."""
+    import numpy as np
+
+    return (np.array_equal(a.lmdas, b.lmdas)
+            and np.array_equal(a.betas.toarray(), b.betas.toarray()))
+
+
+def cov_kkt(what, A64, v64, state, groups, sizes, penalty):
+    """The covariance method's group KKT per lambda in float64 on the card:
+    the gradient v - A beta (``group_kkt_parts``); zero groups held at
+    1e-2 lambda, nonzero groups reported.  Returns (zero, nonzero)."""
+    import torch
+
+    B = torch.as_tensor(state.betas.toarray(), device=DEV).double()
+    G = v64[None, :] - B @ A64
+    v0, v1 = group_kkt_parts(G, B, state.lmdas, groups, sizes, penalty, 1.0)
+    zero, nonzero = float(v0.max()), float(v1.max())
+    if not zero <= 1e-2:
+        fail(f"{what}: zero-group KKT violation {zero:.3e} lambda")
+    return zero, nonzero
+
+
+def cov_cell(ad, what, A, v, counters, runs=3, **kw):
+    """A warm-up and ``runs`` timed ``gaussian_cov`` fits: (walls, the
+    first timed state, its launches, the warm-up's wall); the first two
+    timed fits must be bit-equal."""
+    warm, _ = timed(lambda: ad.gaussian_cov(A, v, **kw))
+    zero_counts(*counters)
+    walls, states, counts = [], [], None
+    for i in range(runs):
+        wall, st = timed(lambda: ad.gaussian_cov(A, v, **kw))
+        if i == 0:
+            counts = {k: c[k] for c in counters for k in c}
+        if st.error != "":
+            fail(f"{what}: error {st.error!r}")
+        walls.append(wall)
+        states.append(st)
+    if runs > 1 and not same_path(states[0], states[1]):
+        fail(f"{what}: two timed fits differ (beta or lambdas)")
+    return walls, states[0], counts, warm
+
+
+def walls_words(walls, warm):
+    import numpy as np
+
+    return (f"wall median {np.median(walls):.3f} s of {len(walls)} "
+            f"({min(walls):.3f}-{max(walls):.3f}; warm-up {warm:.3f} s)")
+
+
+def cov_dense_phase(ad, card, tk, pg, X, y, ref):
+    """C1-C3 on phase 5's X and y: A = X^T X / n and v = X^T y / n formed
+    on the card (``eager_cov``), 100 lambdas to 1e-2 with no early exit
+    (phase 5's path).  C1: A dense, chunked, K1 (a warm-up, three timed
+    fits, a profiled one; the KKT per lambda; beta's gap to phase 5's
+    ``grpnet`` fit ``ref``).  C2: the same in 500 groups of 4 (K6, its
+    Newton counts).  C3: ``lazy_cov(X / sqrt(n))`` through ``solve_core``
+    a lambda at a time against C1: the columns formed and the peak memory.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    n, p = X.shape
+    Xd = torch.as_tensor(X, device=DEV)
+    t_form, (A, v) = timed(lambda: (
+        ad.matrix.eager_cov(Xd * (1.0 / np.sqrt(n))),
+        Xd.T @ torch.as_tensor(y, device=DEV) / n))
+    A64, v64 = A.mat.double(), v.double()
+    kw = dict(lmda_path_size=100, min_ratio=1e-2, early_exit=False)
+    counters = (tk.launches, pg.launches)
+
+    walls, st1, c1, warm = cov_cell(ad, "C1", A, v, counters, **kw)
+    if len(st1.lmdas) != 100 or c1["pin_lasso_solve"] <= 0:
+        fail(f"C1: {len(st1.lmdas)} lambdas, launches {c1}")
+    ones = np.ones(p, int)
+    kkt1 = cov_kkt("C1", A64, v64, st1, np.arange(p), ones, ones)
+    gap = float(np.abs(st1.betas.toarray() - ref.betas.toarray()).max())
+    lm_gap = float(np.abs(np.asarray(st1.lmdas) / ref.lmdas - 1).max())
+    phase("cov-dense", f"C1 gaussian_cov(eager_cov(X / sqrt(n)), X^T y / n)"
+          f" n={n} p={p} f32, 100 lambdas (A, v formed in {t_form:.3f} s): "
+          f"{walls_words(walls, warm)}, two timed fits bit-equal, peak "
+          f"screen {int(max(st1.screen_sizes))}, launches {c1}, KKT "
+          f"(float64) zero groups {kkt1[0]:.2e} lambda, nonzero "
+          f"{kkt1[1]:.2e}; against phase 5's grpnet fit: lambdas rtol "
+          f"{lm_gap:.1e}, beta {gap:.3e} | {card}")
+    prof = profile_run(lambda: ad.gaussian_cov(A, v, **kw))
+    phase("cov-dense", f"C1 {profile_line(prof)} | {card}")
+
+    groups = np.arange(0, p, 4)
+    pg.reset_newton()
+    walls2, st2, c2, warm2 = cov_cell(ad, "C2", A, v, counters,
+                                      groups=groups, **kw)
+    if c2["pin_group_solve"] <= 0:
+        fail(f"C2: K6 launched no time ({c2})")
+    kkt2 = cov_kkt("C2", A64, v64, st2, groups, np.full(len(groups), 4),
+                   np.full(len(groups), 2.0))
+    phase("cov-dense", f"C2 the same in {len(groups)} groups of 4: "
+          f"{walls_words(walls2, warm2)}, two timed fits bit-equal, "
+          f"{len(st2.lmdas)} lambdas, peak screen "
+          f"{int(max(st2.screen_sizes))} groups, launches {c2}, KKT zero "
+          f"groups {kkt2[0]:.2e} lambda, nonzero {kkt2[1]:.2e} | {card}")
+    phase("cov-dense", f"C2 (the four fits) {newton_line(pg.newton)} | "
+          f"{card}")
+
+    Al = ad.matrix.lazy_cov(Xd * (1.0 / np.sqrt(n)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    wall3, st3 = timed(lambda: ad.gaussian_cov(Al, v, **kw))
+    c3 = {k: c[k] for c in counters for k in c}
+    peak3 = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if st3.error != "" or len(st3.lmdas) != len(st1.lmdas):
+        fail(f"C3: error {st3.error!r}, {len(st3.lmdas)} lambdas")
+    lm3 = float(np.abs(np.asarray(st3.lmdas) / st1.lmdas - 1).max())
+    gap3 = float(np.abs(st3.betas.toarray() - st1.betas.toarray()).max())
+    phase("cov-dense", f"C3 gaussian_cov(lazy_cov(X / sqrt(n))), a lambda "
+          f"at a time: wall {wall3:.3f} s, {len(st3.lmdas)} lambdas "
+          f"(rtol {lm3:.1e} to C1's), beta {gap3:.3e} from C1, peak "
+          f"screen {int(max(st3.screen_sizes))}, {Al.n_formed} of {p} "
+          f"columns formed, peak {peak3:.3f} GiB above its inputs (X / "
+          f"sqrt(n) among them), launches {c3} | {card}")
+    if lm3 > 1e-5 or gap3 > 1e-3:
+        fail("C3: the lazy covariance's path parts from C1's")
+    del A, Al, A64
+    return {"cov-dense": c1, "cov-dense-grouped": c2, "cov-lazy": c3}
+
+
+def ld_blocks(Xm, block, ys):
+    """C4's inputs on the card: the LD blocks of ``block`` consecutive
+    standardized SNPs (each its Gram / n from the decoded columns) and,
+    for each response of ``ys``, v = X_std^T y / n."""
+    import torch
+
+    n, p = Xm.rows(), Xm.cols()
+    mats, vs = [], [[] for _ in ys]
+    for s in range(0, p, block):
+        Xb = Xm.gather(torch.arange(s, min(s + block, p), device=DEV))
+        Xb = Xb - Xb.mean(dim=0)
+        Xb = Xb / Xb.std(dim=0, unbiased=False).clamp(min=1e-12)
+        mats.append(Xb.T @ Xb / n)
+        for v, y in zip(vs, ys):
+            v.append(Xb.T @ y / n)
+        del Xb
+    return mats, [torch.cat(v) for v in vs]
+
+
+def polygenic_trait(Xm, k, seed):
+    """A polygenic response on the card: the standardized score of ``k``
+    random SNPs with N(0, 1) effects plus noise of the same variance
+    (heritability 0.5)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    causal = np.sort(rng.choice(Xm.cols(), k, replace=False))
+    Xc = Xm.gather(torch.as_tensor(causal, device=DEV))
+    Xc = (Xc - Xc.mean(dim=0)) / Xc.std(dim=0, unbiased=False)
+    score = Xc @ torch.as_tensor(rng.standard_normal(k), dtype=Xc.dtype,
+                                 device=DEV)
+    noise = torch.as_tensor(rng.standard_normal(Xm.rows()), dtype=Xc.dtype,
+                            device=DEV)
+    return score + score.std() * noise
+
+
+def cov_gwas_phase(ad, card, tk, Xm, io, y, block=1000, k_poly=200):
+    """C4, the summary-statistics GWAS on phase 9's panel: ``block_diag``
+    of 200 LD blocks of 1,000 standardized SNPs (lassosum's design),
+    v = X_std^T y / n, 50 lambdas to 5e-2, through ``solve_core``: the
+    wall, launches, peak memory, the KKT per lambda, the causal SNPs in
+    the last active set.  The trait's 40 strong SNPs keep the screen far
+    below 1024 (phase 9's grpnet fit peaks at 64), so a polygenic trait on
+    the same blocks (200 causal SNPs, heritability 0.5, seed 43; no early
+    exit) takes the screen past it (K2).  Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    y_poly = polygenic_trait(Xm, k_poly, seed=43)
+    t_form, (mats, (v, v_poly)) = timed(lambda: ld_blocks(
+        Xm, block, [torch.as_tensor(y, device=DEV), y_poly]))
+    A = ad.matrix.block_diag(mats, method="cov")
+    offs = np.arange(0, A.cols(), block)
+    ones = np.ones(A.cols(), int)
+    out = {}
+    for name, vv, what, early in (
+            ("cov-gwas", v, "the GWAS trait", True),
+            ("cov-gwas-polygenic", v_poly, "a polygenic trait (no early "
+             "exit)", False)):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(tk.launches)
+        wall, st = timed(lambda: ad.gaussian_cov(
+            A, vv, lmda_path_size=50, min_ratio=5e-2, early_exit=early))
+        counts = dict(tk.launches)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if st.error != "":
+            fail(f"C4 ({what}): error {st.error!r}")
+        B = torch.as_tensor(st.betas.toarray(), device=DEV).double()
+        G = vv.double()[None, :] - torch.cat(
+            [B[:, s:s + M.shape[0]] @ M.T.double()
+             for s, M in zip(offs, mats)], dim=1)
+        v0, v1 = group_kkt_parts(G, B, st.lmdas, np.arange(A.cols()), ones,
+                                 ones, 1.0)
+        zero, nonzero = float(v0.max()), float(v1.max())
+        del B, G
+        if not zero <= 1e-2:
+            fail(f"C4 ({what}): zero-group KKT violation {zero:.3e} lambda")
+        act = set(np.flatnonzero(st.betas.toarray()[-1]).tolist())
+        found = (f", causal SNPs in the last active set "
+                 f"{len(act & set(io.causal))} of {len(io.causal)}"
+                 if name == "cov-gwas" else "")
+        phase("cov-gwas", f"C4 gaussian_cov(block_diag of {len(mats)} LD "
+              f"blocks of {block} standardized SNPs) on {what}, "
+              f"n={Xm.rows()} p={Xm.cols()} f32 (blocks formed in "
+              f"{t_form:.2f} s), 50 lambdas to 5e-2: wall {wall:.3f} s, "
+              f"{len(st.lmdas)} lambdas, peak screen "
+              f"{int(max(st.screen_sizes))}, pin solves' S in "
+              f"[{min(st.benchmark['pin_caps'])}, "
+              f"{max(st.benchmark['pin_caps'])}], launches {counts}, peak "
+              f"memory {peak:.2f} GiB above the panel, KKT (float64) zero "
+              f"groups {zero:.2e} lambda, nonzero {nonzero:.2e}{found} | "
+              f"{card}")
+        out[name] = counts
+    if out["cov-gwas"]["pin_lasso_solve"] <= 0 or \
+            out["cov-gwas-polygenic"]["pin_lasso_solve_rows"] <= 0:
+        fail(f"C4: launches {out}: K1 on the GWAS trait and K2 on the "
+             "polygenic one expected")
+    del A, mats
+    return out
+
+
+def bvls_phase(ad, card, X, y):
+    """A1, BVLS as non-negative least squares on phase 5's X and y
+    (lower 0, upper +inf): a warm-up whose every K7 launch is replayed on
+    the twin on the CPU on copies (bit-equal), three timed fits (the first
+    two bit-equal), K7's launches; the bounds' KKT in float64 (the gradient
+    X^T (y - X b) / n is <= 0 at a coefficient at 0 and 0 inside, both
+    held at 1e-3 max |X^T y / n|).  Returns (launches, K7's numbers at the
+    largest replayed call)."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    n, p = X.shape
+    Xm = ad.matrix.dense(X, device=DEV)
+    lo, hi = np.zeros(p, np.float32), np.full(p, np.inf, np.float32)
+
+    def run():
+        return ad.bvls(Xm, y, lo, hi)
+
+    (warm, _), calls = k7_kept(lambda: timed(run))
+    t0 = time.perf_counter()
+    replay = k7_replay("A1 warm-up", calls)
+    replay_s = time.perf_counter() - t0
+    zero_counts(kc.launches)
+    walls, states = [], []
+    for i in range(3):
+        wall, st = timed(run)
+        if i == 0:
+            counts = dict(kc.launches)
+        walls.append(wall)
+        states.append(st)
+    st = states[0]
+    if not (np.array_equal(st.beta, states[1].beta)
+            and st.loss == states[1].loss):
+        fail("A1: two timed fits differ")
+    if counts["screened_cd_solve"] <= 0:
+        fail("A1: K7 launched no time")
+    Xd = torch.as_tensor(X, device=DEV).double()
+    y64 = torch.as_tensor(y, device=DEV).double()
+    b = torch.as_tensor(st.beta, device=DEV).double()
+    g = Xd.T @ (y64 - Xd @ b) / n
+    scale = float((Xd.T @ y64 / n).abs().max())
+    at0 = b == 0
+    kkt_lo = float(torch.where(at0, g.clamp(min=0), 0.0).max()) / scale
+    kkt_in = float(torch.where(at0, 0.0, g.abs()).max()) / scale
+    if not (kkt_lo <= 1e-3 and kkt_in <= 1e-3 and bool((b >= 0).all())):
+        fail(f"A1: bound KKT {kkt_lo:.2e} (at 0), {kkt_in:.2e} (inside)")
+    # K7 on the card at the largest replayed call's inputs
+    i_big = max(range(len(calls)), key=lambda i: replay[i][0])
+    args = [a.to(DEV) if torch.is_tensor(a) else a for a in calls[i_big][0]]
+    args[0] = args[0].mT.contiguous().mT
+    ms = cuda_ms(lambda: kc.screened_cd_solve(*args), reps=3)
+    S, plain_ms, info, rows = replay[i_big]
+    S_val = int(calls[i_big][0][6].sum())
+    b_ms, b_by = k7_bound(S, S_val, 4, info[3], rows, info[4])
+    k7_main = dict(S=S, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, moves=int(info[3]), updates=int(info[4]),
+                   rows=rows, S_val=S_val, iters=int(info[1]))
+    phase("bvls", f"A1 bvls(X, y, 0, inf) n={n} p={p} f32: "
+          f"{walls_words(walls, warm)}, two timed fits bit-equal, KKT "
+          f"rounds {st.n_kkt}, screen {st.screen_set_size}, active "
+          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts}; "
+          f"bound KKT (float64) {kkt_lo:.2e} at 0, {kkt_in:.2e} inside; "
+          f"the warm-up's {len(calls)} K7 calls (S {[r[0] for r in replay]})"
+          f" bit-equal to the twin ({replay_s:.1f} s); K7 at S={S}: "
+          f"{ms:.3f} ms ({info[3]:.0f} moves on {rows} distinct "
+          f"slots of {S_val} valid, {info[4]:.0f} updates, "
+          f"{ms * 1e3 / max(info[4], 1):.3f} us an update), the twin "
+          f"{plain_ms:.0f} ms, bound {b_ms:.4f} ms ({b_by}) | {card}")
+    del Xm, Xd
+    return counts, k7_main
+
+
+def pinball_objective(A, S, v, pn, pp, b):
+    """tests/test_aux_solvers.py's pinball objective."""
+    Q = A @ S @ A.T
+    return float(0.5 * b @ Q @ b - (A @ v) @ b
+                 + pn @ (-b).clamp(min=0) + pp @ b.clamp(min=0))
+
+
+def pinball_fista(A, S, v, pn, pp, max_iters=20000, tol=1e-14):
+    """tests/test_aux_solvers.py's FISTA oracle in float64 on the card."""
+    import torch
+
+    Q = A @ S @ A.T
+    lin = A @ v
+    t = 1.0 / max(float(torch.linalg.eigvalsh(Q)[-1]), 1e-10)
+    x = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
+    z = x.clone()
+    s = 1.0
+    for _ in range(max_iters):
+        u = z - t * (Q @ z - lin)
+        x_new = torch.where(u > t * pp, u - t * pp,
+                            torch.where(u < -t * pn, u + t * pn, 0.0))
+        s_new = 0.5 * (1 + (1 + 4 * s * s) ** 0.5)
+        z = x_new + ((s - 1) / s_new) * (x_new - x)
+        done = float((x_new - x).norm()) < tol
+        x, s = x_new, s_new
+        if done:
+            break
+    return x
+
+
+def pinball_phase(ad, card, m=4096, d=1024):
+    """A2, pinball: A (4,096, 1,024) Gaussian, S a Wishart (1,024, 1,024)
+    from 4,096 samples, penalties U(0.5, 1.5), seed 41, float64, ``tol``
+    1e-12 (tests/test_aux_solvers.py's, for the objective): one timed fit
+    (a fit takes about a minute: K7 runs tens of thousands of sweeps at
+    S_cap 4,096), K7's launches, the objective against a float64 FISTA on
+    the card.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    rng = np.random.default_rng(41)
+    A = rng.standard_normal((m, d))
+    Z = rng.standard_normal((4 * d, d))
+    S = Z.T @ Z / (4 * d)
+    v = rng.standard_normal(d)
+    pn, pp = rng.uniform(0.5, 1.5, m), rng.uniform(0.5, 1.5, m)
+
+    def run():
+        return ad.pinball(A, S, v, pn, pp, tol=1e-12)
+
+    zero_counts(kc.launches)
+    wall, st = timed(run)
+    counts = dict(kc.launches)
+    if counts["screened_cd_solve"] <= 0:
+        fail("A2: K7 launched no time")
+    dev = dict(dtype=torch.float64, device=DEV)
+    Ad, Sd, vd = (torch.as_tensor(a, **dev) for a in (A, S, v))
+    pnd, ppd = torch.as_tensor(pn, **dev), torch.as_tensor(pp, **dev)
+    t_f, x_f = timed(lambda: pinball_fista(Ad, Sd, vd, pnd, ppd))
+    b = torch.as_tensor(st.beta, **dev)
+    ours = pinball_objective(Ad, Sd, vd, pnd, ppd, b)
+    oracle = pinball_objective(Ad, Sd, vd, pnd, ppd, x_f)
+    b_gap = float((b - x_f).abs().max())
+    # the test's bars (beta within 1e-5 of FISTA's, or the objective
+    # within 1e-7); past them, the objective within 3e-7 y_var: three
+    # times the gap this problem reads (1.0e-7 y_var), which the JAX
+    # package's own fit of it reads too: its loss-plateau stop ends the
+    # KKT rounds with a violator left (tools/pinball_plateau_gap.py)
+    near = b_gap <= 1e-5 or ours <= oracle + 1e-7 * max(1.0, abs(oracle))
+    if not (near or ours <= oracle + 3e-7 * st.y_var):
+        fail(f"A2: objective {ours:.12g} above FISTA's {oracle:.12g} by "
+             f"more than 3e-7 y_var ({st.y_var:.10g})")
+    phase("pinball", f"A2 pinball m={m} d={d} f64 tol 1e-12: wall {wall:.3f} s"
+          f" (no warm-up), KKT rounds {st.n_kkt}, screen {st.screen_set_size}, active "
+          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts}; "
+          f"objective {ours:.12g} against FISTA's {oracle:.12g} (float64 on "
+          f"the card, {t_f:.1f} s; y_var {st.y_var:.10g}, the gap "
+          f"{(ours - oracle) / st.y_var:.2e} y_var), beta within "
+          f"{b_gap:.2e} of FISTA's | {card}")
+    return counts
+
+
+def css_phase(ad, card, X, k=100, k_sf=20):
+    """A3, column subset selection on the correlation of phase 5's X
+    (p = 2,000): greedy least squares (k = 100), swapping from it, greedy
+    min-det (k = 100), greedy subset factor (k = 20); walls, and the
+    least-squares objective of greedy against swapping."""
+    import numpy as np
+    import torch
+
+    Xd = torch.as_tensor(X, device=DEV).double()
+    Xd = Xd - Xd.mean(dim=0)
+    Xd = Xd / Xd.norm(dim=0)
+    S = Xd.T @ Xd
+    del Xd
+
+    def ls_objective(T):
+        Tt = torch.as_tensor(np.asarray(T), device=DEV)
+        ST = S[:, Tt]
+        return float(torch.trace(S) - torch.trace(
+            ST @ torch.linalg.solve(S[Tt][:, Tt], ST.T)))
+
+    words = []
+    t, g = timed(lambda: ad.css_cov(S, k, method="greedy"))
+    words.append(f"greedy least squares k={k} {t:.3f} s")
+    t, sw = timed(lambda: ad.css_cov(S, subset=g.subset, method="swapping"))
+    words.append(f"swapping from it {t:.3f} s "
+                 f"({len(set(sw.subset) - set(g.subset))} columns swapped)")
+    f_g, f_s = ls_objective(g.subset), ls_objective(sw.subset)
+    if not f_s <= f_g * (1 + 1e-9):
+        fail(f"A3: swapping's objective {f_s:.10g} above greedy's {f_g:.10g}")
+    t, _ = timed(lambda: ad.css_cov(S, k, method="greedy", loss="min_det"))
+    words.append(f"greedy min-det k={k} {t:.3f} s")
+    t, _ = timed(lambda: ad.css_cov(S, k_sf, method="greedy",
+                                    loss="subset_factor"))
+    words.append(f"greedy subset factor k={k_sf} {t:.3f} s")
+    phase("css", f"A3 css_cov on the correlation of X (p={S.shape[0]}, "
+          f"f64): {'; '.join(words)}; least-squares objective greedy "
+          f"{f_g:.6f}, swapping {f_s:.6f} | {card}")
+    del S
+
+
+def aux_cuda_vs_cpu_phase(ad):
+    """A4, float64, the card against the CPU on small problems:
+    ``gaussian_cov`` on the dense (chunked, grouped), lazy, block-diagonal
+    and sparse covariance matrices; ``bvls``, ``pinball`` and ``css_cov``
+    (greedy and swapping, all three losses).  Bars: lambdas rtol 1e-10,
+    beta 1e-8, CSS subsets equal."""
+    import numpy as np
+
+    rng = np.random.default_rng(44)
+    n, p = 400, 120
+    X = rng.standard_normal((n, p))
+    y = X[:, :10] @ rng.standard_normal(10) + rng.standard_normal(n)
+    A, v = X.T @ X / n, X.T @ y / n
+    As = np.where(np.abs(A) > 0.05, A, 0.0)
+    blocks = [A[:60, :60], A[60:, 60:]]
+
+    def mats(dev):
+        return {"dense": ad.matrix.dense(A, method="cov", device=dev),
+                "dense grouped": ad.matrix.dense(A, method="cov", device=dev),
+                "lazy": ad.matrix.lazy_cov(X / np.sqrt(n), device=dev),
+                "block-diagonal": ad.matrix.block_diag(
+                    blocks, method="cov", device=dev),
+                "sparse": ad.matrix.sparse(As, method="cov", device=dev)}
+
+    worst = {}
+    ad.set_configs("screen_all_max", 0)
+    try:
+        gpu, cpu = mats(DEV), mats("cpu")
+        for name in gpu:
+            kw = dict(groups=np.arange(0, p, 3)) if "grouped" in name else {}
+            a, b = (ad.gaussian_cov(m[name], v, **kw) for m in (gpu, cpu))
+            if a.error or b.error or len(a.lmdas) != len(b.lmdas):
+                fail(f"A4 {name}: errors {a.error!r} {b.error!r}, "
+                     f"{len(a.lmdas)} and {len(b.lmdas)} lambdas")
+            lm = float(np.abs(a.lmdas / b.lmdas - 1).max())
+            bt = float(np.abs(a.betas.toarray() - b.betas.toarray()).max())
+            worst[name] = (lm, bt)
+            if lm > 1e-10 or bt > 1e-8:
+                fail(f"A4 {name}: lambdas {lm:.1e}, beta {bt:.1e}")
+    finally:
+        ad.set_configs("screen_all_max", None)
+    lo, hi = -rng.uniform(0, 0.3, p), rng.uniform(0, 0.3, p)
+    a, b = (ad.bvls(X, y, lo, hi, device=d) for d in (DEV, "cpu"))
+    worst["bvls"] = (0.0, float(np.abs(a.beta - b.beta).max()))
+    Ap = rng.standard_normal((80, 30))
+    Z = rng.standard_normal((120, 30))
+    Sp = Z.T @ Z / 120
+    vp = rng.standard_normal(30)
+    pn, pp = rng.uniform(0.5, 1.5, 80), rng.uniform(0.5, 1.5, 80)
+    a, b = (ad.pinball(Ap, Sp, vp, pn, pp, device=d) for d in (DEV, "cpu"))
+    worst["pinball"] = (0.0, float(np.abs(a.beta - b.beta).max()))
+    for key in ("bvls", "pinball"):
+        if worst[key][1] > 1e-8:
+            fail(f"A4 {key}: beta {worst[key][1]:.1e}")
+    C = np.corrcoef(rng.standard_normal((300, 60)).T)
+    for loss in ("least_squares", "subset_factor", "min_det"):
+        for method in ("greedy", "swapping"):
+            a, b = (ad.css_cov(C, 8, method=method, loss=loss, device=d)
+                    for d in (DEV, "cpu"))
+            if list(a.subset) != list(b.subset):
+                fail(f"A4 css {method} {loss}: {list(a.subset)} against "
+                     f"{list(b.subset)}")
+    phase("aux-cuda-vs-cpu", "A4 f64, the card against the CPU: "
+          + "; ".join(f"{k} lambdas {lm:.1e} beta {bt:.1e}"
+                      for k, (lm, bt) in worst.items())
+          + "; css_cov subsets equal (greedy and swapping, three losses)")
+
+
 def main():
     try:
         import numpy as np
@@ -2934,6 +3719,10 @@ def main():
     from adelie_tpu_torch.solver import pin_group_kernels as pg
 
     k6, _ = k6_phase(card)
+    torch.cuda.empty_cache()
+
+    # 4c. K7 against its twin: the whole screened fit
+    k7 = k7_phase(card)
     torch.cuda.empty_cache()
 
     # 5. the headline fit (warm-up, then the timed main-path fit)
@@ -3183,7 +3972,14 @@ def main():
     del st_m1
     torch.cuda.empty_cache()
     multi_cuda_vs_cpu_phase(ad, tk, pg)
-    del X, y, signal5
+    # C1-C3, A1-A4: the covariance method and the standalone solvers
+    glm_counts.update(cov_dense_phase(ad, card, tk, pg, X, y, state))
+    torch.cuda.empty_cache()
+    glm_counts["bvls"], k7_main = bvls_phase(ad, card, X, y)
+    glm_counts["pinball"] = pinball_phase(ad, card)
+    css_phase(ad, card, X)
+    aux_cuda_vs_cpu_phase(ad)
+    del X, y, signal5, state
     torch.cuda.empty_cache()
 
     # 8. K3 and K4 against their twins
@@ -3254,6 +4050,8 @@ def main():
     # M2: the multi-trait GWAS on the same panel
     glm_counts["gwas-multi"] = multi_gwas_phase(ad, card, tk, pg, sk, Xm9,
                                                 io9)
+    # C4: the summary-statistics GWAS on the same panel
+    glm_counts.update(cov_gwas_phase(ad, card, tk, Xm9, io9, y9))
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()
@@ -3594,6 +4392,15 @@ def main():
          "max_abs_err": max(r["max_abs_err"] for r in k6),
          "ms": k6_main["ms"], "plain_ms": k6_main["plain_ms"],
          "bound_ms": k6_b[0], "bound_by": k6_b[1], "library_ms": None},
+        {"name": "screened_cd_solve", "route": "cuda",
+         "source": "adelie_tpu_torch/csrc/screened_cd_kernels.cu",
+         "replaces": "adelie_tpu/solver/screened_cd.py:45 (no TPU kernel: "
+                     "an XLA loop)",
+         "launches": glm_counts["bvls"]["screened_cd_solve"],
+         "max_abs_err": max(r["max_abs_err"] for r in k7),
+         "ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
+         "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
+         "library_ms": None},
         *({"name": name, "route": "cuda",
            "source": "adelie_tpu_torch/csrc/snp_kernels.cu",
            "replaces": replaces, "launches": launches,

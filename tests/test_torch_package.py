@@ -63,13 +63,17 @@ def test_nvcc_command_names_both_kernel_sources():
     compiles, _ = _build.nvcc_commands("/x/nvcc", Path("/tmp/out.so"))
     names = sorted(Path(c[-1]).name for c in compiles)
     assert names == ["pin_group_kernels.cu", "pin_kernels.cu",
-                     "snp_kernels.cu"]
-    # snp_kernels.cu holds K3, K4 and K5; pin_group_kernels.cu K6
+                     "screened_cd_kernels.cu", "snp_kernels.cu"]
+    # snp_kernels.cu holds K3, K4 and K5; pin_group_kernels.cu K6;
+    # screened_cd_kernels.cu K7
     src = (_build.CSRC_DIR / "snp_kernels.cu").read_text()
     assert all(f"adelie_{k}_f32(" in src
                for k in ("snp_mul", "snp_mul_no_na", "snp_mul_many"))
     src = (_build.CSRC_DIR / "pin_group_kernels.cu").read_text()
     assert all(f"adelie_pin_group_solve_{s}(" in src for s in ("f32", "f64"))
+    src = (_build.CSRC_DIR / "screened_cd_kernels.cu").read_text()
+    assert all(f"adelie_screened_cd_solve_{s}(" in src
+               for s in ("f32", "f64"))
     assert all("-fmad=false" in c and "-c" in c for c in compiles)
 
 
