@@ -210,15 +210,27 @@ def _bind(lib) -> None:
         f = getattr(lib, f"adelie_snp_mul_many_{suffix}")
         f.argtypes = [ptr] * 4 + [c_int64] * 4 + [ptr]
         f.restype = c_int
-        # (13 pointers, S, mode, loss, tol_scale, max_iters, iters0, stream)
+        # K7's chain: (14 pointers, S, mode, stage, tol_scale, max_iters,
+        # log_cap, log_sweeps, layout, ring, stream)
         f = getattr(lib, f"adelie_screened_cd_solve_{suffix}")
-        f.argtypes = [ptr] * 13 + [c_int, c_int, real, real, c_int, c_int,
-                                   ptr]
+        f.argtypes = [ptr] * 14 + [c_int, c_int, c_int, real, c_int, c_int64,
+                                   c_int, c_int, c_int, ptr]
+        f.restype = c_int
+        # K7's gather (Qt, list, state, Qc, S, stream) and replay (Qt,
+        # list, rest, grad, log, state, S, stream)
+        f = getattr(lib, f"adelie_screened_cd_gather_{suffix}")
+        f.argtypes = [ptr] * 4 + [c_int, ptr]
+        f.restype = c_int
+        f = getattr(lib, f"adelie_screened_cd_replay_{suffix}")
+        f.argtypes = [ptr] * 6 + [c_int, ptr]
         f.restype = c_int
     lib.adelie_pin_lasso_solve_resident_rows.argtypes = [c_int, c_int]
     lib.adelie_pin_lasso_solve_resident_rows.restype = c_int
     lib.adelie_screened_cd_in_smem.argtypes = [c_int, c_int]
     lib.adelie_screened_cd_in_smem.restype = c_int
+    lib.adelie_screened_cd_active_layout.argtypes = [
+        c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    lib.adelie_screened_cd_active_layout.restype = c_int
     lib.adelie_snp_mul_many_cols.argtypes = [c_int64]
     lib.adelie_snp_mul_many_cols.restype = c_int64
     lib.adelie_cuda_error_string.argtypes = [c_int]

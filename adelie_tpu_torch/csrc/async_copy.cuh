@@ -1,7 +1,8 @@
 // Asynchronous copies into shared memory on Hopper (sm_90a): mbarriers and
-// bulk copies (TMA), shared by the kernels of pin_kernels.cu (K2's row ring)
-// and snp_kernels.cu (K5's U^T ring), and the per-thread cp.async of
-// pin_group_kernels.cu (K6's staged operands).
+// bulk copies (TMA), shared by the kernels of pin_kernels.cu (K2's row ring),
+// snp_kernels.cu (K5's U^T ring) and screened_cd_kernels.cu (K7's row ring
+// of the active phase), and the per-thread cp.async of pin_group_kernels.cu
+// (K6's staged operands).
 //
 // A ring slot's mbarrier is initialised with one expected arrival; the
 // thread that fills the slot arrives with the byte count it expects
@@ -23,6 +24,21 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
                    smem_addr(bar)),
                "r"(count)
                : "memory");
+}
+// whether the phase of parity `parity` of the mbarrier has completed,
+// without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 // make the initialised mbarriers visible to the bulk copies; a
 // __syncthreads after it makes them visible to the block

@@ -5,8 +5,9 @@ Counterpart of ``adelie_tpu/solver/screened_cd.py``: the screened atoms'
 Gram is formed once a fit by the caller, and the whole fit (the sweeps
 over the screen, the active-set refinement, the pruning, the loss) runs
 in covariance form in one call, K7 of ``screened_cd_kernels`` on a CUDA
-tensor and its twin on a CPU tensor.  The host only drives the KKT
-screening rounds around it.
+tensor (full sweeps and segments of device work, a host read after each)
+and its twin on a CPU tensor.  The host drives the KKT screening rounds
+around it.
 
 ``mode``:
 
@@ -42,7 +43,8 @@ def screened_cd_fit(Q, diag, beta, grad, lo, hi, valid, is_active, loss,
     the cap on the total sweeps and ``iters0`` the sweeps already spent.
 
     Returns ``(beta, grad, is_active, loss, iters, converged)``: three
-    tensors on Q's device and three host values, read in one copy."""
+    tensors on Q's device and three host values (``info`` is on the
+    host)."""
     beta, grad, is_active, info = kernels.screened_cd_solve(
         Q, diag, beta, grad, lo, hi, valid, is_active, loss, tol_scale,
         max_iters, iters0, mode)

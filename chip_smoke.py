@@ -35,15 +35,25 @@ Phases, one line of output each (phases 8, 12, 13 and 14 a few):
     every case; each case's finds at the cap, cycle exits, Newton steps
     run and time per update beside the chain's floor (every update 0) in
     float32 at S = 1024 and 4096 and float64 at 1024;
-4c. K7 ``screened_cd_solve`` (BVLS's and pinball's whole screened fit)
-    against its twin on the CPU on copies of the same inputs, bit-equal
-    (beta, grad, flags, loss, sweeps, moves): float32 and float64, box
-    and pinball, S in {64, 1000, 2048, 8192}
-    (float64 at 8,192 with its
-    vectors in global memory), from a cold and a warm start, with invalid
-    slots, a d = 0 slot and a Q whose triangles differ; each case's time
-    per update and per moving update beside its bound, and the floor
-    (every delta 0) in float32 at S = 1000 and 8192;
+4c. K7 ``screened_cd_solve`` (BVLS's and pinball's whole screened fit:
+    its chain, gather and replay kernels in segments) against its twin on
+    the CPU on copies of the same inputs, bit-equal (beta, grad, flags,
+    loss, sweeps, moves): float32 and float64, box and pinball, S in {64,
+    1000, 2048, 8192} (float64 at 8,192 with the full sweeps' vectors in
+    global memory), from a cold and a warm start, with invalid slots, a d
+    = 0 slot and a Q whose triangles differ; each case's time per update
+    and per moving update beside its bound, its rounds, longest active
+    list and layout, and each kernel's device time (the active segments'
+    per listed move); the floor (every delta 0) in float32 at S = 1000
+    and 8192; a log of one sweep (a segment, a replay and a host read an
+    active sweep) at S = 2048 in float64, box and pinball; a dense warm
+    start at S = 8192 in float64 whose active list is too long for the
+    compact vectors and a ring in shared memory; the two smaller layouts
+    forced at S = 2048 in float64; a ring of two rows forced on a problem
+    whose every active sweep ends on listed updates that do not move
+    (float64 with a log of one sweep, float32 without); and the three
+    kernels against their plain stand-ins after every step of two
+    segmented fits (the second with a ring of two rows);
 5. the headline fit: ``grpnet(X, glm.gaussian(y))`` on "cuda" at
    n = 40,000, p = 2,000, 100 lambdas, float32 (bench.py's problem), with a
    per-lambda KKT check in numpy float64, and one more fit under
@@ -215,11 +225,19 @@ C4. the summary-statistics GWAS: ``block_diag`` of 200 LD blocks of 1,000
 A1. ``bvls`` as non-negative least squares on phase 5's X and y: a
     warm-up whose every K7 call is replayed on the twin on the CPU
     (bit-equal), three timed fits (the first two bit-equal), K7's
-    launches, the bounds' KKT in float64, and K7's time at the largest
-    replayed call beside its twin's and its bound (the kernels' line);
+    launches and those that did work (the gather and the replay must
+    have), rounds, host reads, listed updates and peak memory, the
+    bounds' KKT in float64, and K7's time at the largest replayed call
+    beside its twin's and its bound, with its gather and replay against
+    their stand-ins step by step, their times, bounds and library calls
+    (the kernels' line);
 A2. ``pinball`` with A (4,096, 1,024), S a Wishart from 4,096 samples,
-    penalties U(0.5, 1.5), seed 41, float64, tol 1e-12: one timed fit,
-    K7's launches, the objective against a float64 FISTA on the card;
+    penalties U(0.5, 1.5), seed 41, float64, tol 1e-12: one timed fit
+    (its sweeps must be the twin order's 64,427), K7's launches and those
+    that did work (the gather and the replay must have), rounds, host
+    reads, peak memory, each kernel's device time (the replay's share of
+    the wall, us a listed update), the objective against a float64 FISTA
+    on the card;
 A3. ``css_cov`` on the correlation of phase 5's X: greedy least squares
     (k = 100), swapping from it, greedy min-det (k = 100), greedy subset
     factor (k = 20); walls, greedy's least-squares objective against
@@ -2900,8 +2918,14 @@ def k7_problem(S, dtype, mode, seed, case="cold"):
     penalties U(0.5, 1.5) 0.05 max |grad|.  ``case``: "cold" (beta 0,
     nothing active); "warm" (every seventh slot invalid as well, 30 % of the
     valid slots given small coefficients inside the bounds and active, the
-    gradient moved to match); "floor" (box bounds 0 and 0 at beta 0: every
-    update clips to 0, so no delta is nonzero: the chain with no AXPY).
+    gradient moved to match); "dense" (warm with 85 % of the valid slots
+    active: an active list too long for the compact vectors and a ring in
+    shared memory at S = 8192 in float64); "floor" (box bounds 0 and 0 at
+    beta 0: every update clips to 0, so no delta is nonzero: the chain
+    with no AXPY); "tail" (cold, box, the last quarter of the slots with
+    equal bounds 0.02: each moves once in the full sweep, is listed, and
+    never moves again, so every active sweep ends on a stretch of listed
+    updates that do not move).
     Returns ``screened_cd_solve``'s arguments with ``Q`` the transpose of a
     contiguous tensor (the layout K7 reads, so no copy is timed)."""
     import numpy as np
@@ -2937,16 +2961,20 @@ def k7_problem(S, dtype, mode, seed, case="cold"):
         lo = scale * rng.uniform(0.5, 1.5, S)
         hi = scale * rng.uniform(0.5, 1.5, S)
     beta0 = np.zeros(S)
-    if case == "warm":
+    if case in ("warm", "dense"):
         valid[5::7] = False
         b = 0.05 * rng.standard_normal(S)
         if mode == "box":
             b = np.clip(b, lo, hi)
-        beta0 = np.where(valid & (rng.random(S) < 0.3), b, 0.0)
+        share = 0.85 if case == "dense" else 0.3
+        beta0 = np.where(valid & (rng.random(S) < share), b, 0.0)
         g = g - Q @ torch.as_tensor(beta0, device=DEV)
     elif case == "floor":
         lo = np.zeros(S)
         hi = np.zeros(S)
+    elif case == "tail":
+        lo[S - S // 4:] = 0.02
+        hi[S - S // 4:] = 0.02
     dev = dict(device=DEV)
     Qt = Q.to(dtype).T.contiguous()
     return (Qt.T, diag.to(dtype), torch.as_tensor(beta0, dtype=dtype, **dev),
@@ -2979,10 +3007,36 @@ def k7_same(what, out_k, out_t):
              f"{out_t[3].tolist()}")
 
 
-def k7_case(S, dtype, mode, seed, case="cold", reps=5):
+def k7_timed(run):
+    """``run()`` with every K7 launch timed by CUDA events.  Returns (its
+    result, device ms by step: full, gather, active, replay, launches by
+    step, K7's segment counts)."""
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    zero_counts(kc.segments)
+    kc.timing = []
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        events, kc.timing = kc.timing, None
+    ms, n = {}, {}
+    for step, start, end in events:
+        ms[step] = ms.get(step, 0.0) + start.elapsed_time(end)
+        n[step] = n.get(step, 0) + 1
+    return out, ms, n, dict(kc.segments)
+
+
+def k7_case(S, dtype, mode, seed, case="cold", reps=5, **kw):
     """K7 against its twin on the CPU on copies of the same inputs, and
     K7's time (CUDA events) beside the twin's, the Gram's transposition
-    and the bound."""
+    and the bound; one more fit with its launches timed gives each step's
+    device time, the rounds (a segment each) and the longest active list.
+    The fits are ``KernelSteps`` driven by ``run_kernel_fit``, as
+    ``screened_cd_solve`` drives them; ``kw`` (``log_sweeps``, ``layout``,
+    ``ring``) goes to ``KernelSteps``."""
     import numpy as np
     import torch
 
@@ -2990,9 +3044,13 @@ def k7_case(S, dtype, mode, seed, case="cold", reps=5):
 
     what = f"K7 {mode} S={S} {dtype} {case}"
     args = k7_problem(S, dtype, mode, seed, case)
-    ms = cuda_ms(lambda: kc.screened_cd_solve(*args), reps=reps)
+
+    def run():
+        return kc.run_kernel_fit(kc.KernelSteps(*args, **kw))
+
+    ms = cuda_ms(run, reps=reps)
     t_ms = cuda_ms(lambda: args[0].contiguous(), reps=reps)
-    out_k = kc.screened_cd_solve(*args)
+    out_k, step_ms, step_n, seg = k7_timed(run)
     cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
     t0 = time.perf_counter()
     moved = np.zeros(S, bool)
@@ -3008,19 +3066,168 @@ def k7_case(S, dtype, mode, seed, case="cold", reps=5):
     itemsize = torch.empty((), dtype=dtype).element_size()
     S_val = int(args[6].sum())
     b_ms, b_by = k7_bound(S, S_val, itemsize, moves, rows, updates)
+    lay, depth = kc.active_layout(seg["na_max"], S, dtype)
+    if kw.get("layout", -1) >= 0:
+        lay = min(lay, kw["layout"])
+    if kw.get("ring", 0) > 0:
+        depth = min(depth, kw["ring"])
     return dict(S=S, dtype=str(dtype), mode=mode, case=case, ms=ms,
                 plain_ms=plain_ms, transpose_ms=t_ms, iters=int(iters),
                 moves=int(moves), updates=int(updates), rows=int(rows),
                 S_val=S_val,
                 us_per_update=ms * 1e3 / max(updates, 1),
                 us_per_move=ms * 1e3 / max(moves, 1), bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0)
+                bound_by=b_by, max_abs_err=0.0,
+                log_sweeps=kw.get("log_sweeps"), rounds=seg["rounds"],
+                reads=seg["reads"], na_max=seg["na_max"],
+                layout=lay, depth=depth if lay else 0, step_ms=step_ms,
+                step_n=step_n, listed_updates=seg["listed_updates"],
+                listed_moves=seg["listed_moves"],
+                us_per_listed_move=(step_ms.get("active", 0.0) * 1e3
+                                    / max(seg["listed_moves"], 1)))
+
+
+K7_LAYOUTS = {2: "vectors and ring in shared memory", 1: "ring only",
+              0: "rows and vectors in global memory"}
+
+
+def k7_words(r):
+    """A K7 case's segments, layout and step times."""
+    ms = r["step_ms"]
+    return (f"{r['rounds']} rounds (log of "
+            f"{r['log_sweeps'] or 'as many'} sweeps), {r['reads']} host "
+            f"reads, longest list "
+            f"{r['na_max']} ({K7_LAYOUTS[r['layout']]}"
+            f"{', ring of %d rows' % r['depth'] if r['layout'] else ''}); "
+            f"device ms: full sweeps {ms.get('full', 0.0):.3f}, gather "
+            f"{ms.get('gather', 0.0):.3f}, active {ms.get('active', 0.0):.3f}"
+            f" ({r['us_per_listed_move']:.3f} us a listed move, "
+            f"{r['listed_moves']} of {r['listed_updates']} listed updates),"
+            f" replay {ms.get('replay', 0.0):.3f}")
+
+
+class K7Lockstep:
+    """``run_segments``'s steps for one ``KernelSteps`` on the card and one
+    ``PlainSteps`` on CPU copies of the same inputs together: each step
+    runs on both (the kernel timed by CUDA events, with the card kept busy
+    while the host launches, so that the events time the kernel alone),
+    then the state and what the step wrote are compared bit for bit (the
+    full sweep: the vectors, flags and lists; the gather: the compact
+    block; an active segment: the vectors, flags and log; the replay:
+    grad).  ``times`` by step: [kernel ms, stand-in ms, launches];
+    ``work``: the gather's and the replay's bytes and operations, and the
+    last replay's list, other slots and log."""
+
+    compared = {"full": ("beta", "grad", "active", "list", "rest"),
+                "gather": ("Qc",),
+                "active": ("beta", "grad", "active", "log"),
+                "replay": ("grad",)}
+
+    def __init__(self, what, ks, ps, elem):
+        self.what, self.ks, self.ps, self.elem = what, ks, ps, elem
+        self.state0 = ks.state0
+        self.times = {step: [0.0, 0.0, 0] for step in self.compared}
+        self.work = {"gather_bytes": 0, "replay_bytes": 0, "replay_ops": 0}
+
+    def _step(self, step, *arg):
+        import numpy as np
+        import torch
+
+        from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+        ks, ps, what = self.ks, self.ps, self.what
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        getattr(torch.cuda, "_sleep", lambda cycles: None)(1 << 20)
+        start.record()
+        getattr(ks, step)(*arg)
+        end.record()
+        t0 = time.perf_counter()
+        getattr(ps, step)(*arg)
+        plain = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t = self.times[step]
+        t[0] += start.elapsed_time(end)
+        t[1] += plain
+        t[2] += 1
+        a, b = ks.snapshot(), ps.snapshot()
+        if a["state"].tobytes() != b["state"].tobytes():
+            fail(f"{what}: the state after the {step} step "
+                 f"{a['state'].tolist()} against the stand-in's "
+                 f"{b['state'].tolist()}")
+        for key in self.compared[step]:
+            if key in b and (a[key].dtype != b[key].dtype
+                             or a[key].shape != b[key].shape
+                             or a[key].tobytes() != b[key].tobytes()):
+                fail(f"{what}: {key} after the {step} step differs from "
+                     f"the stand-in's")
+        na, nr = int(b["state"][kc.NA]), int(b["state"][kc.NR])
+        elem, work = self.elem, self.work
+        if step == "gather":
+            work["gather_bytes"] += 2 * na * na * elem + 4 * na
+        if step == "replay":
+            logged = b["log"]
+            work["replay_bytes"] += (na * nr + len(logged)
+                                     + 2 * nr) * elem + 4 * (na + nr)
+            work["replay_ops"] += 2 * int(np.count_nonzero(logged)) * nr
+            work.update(list=b["list"], rest=b["rest"], log=logged)
+
+    def full(self):
+        self._step("full")
+
+    def gather(self, na):
+        self._step("gather", na)
+
+    def active(self):
+        self._step("active")
+
+    def replay(self):
+        self._step("replay")
+
+    def read(self):
+        state = self.ks.read()
+        if state != self.ps.read():
+            fail(f"{self.what}: the states read differ")
+        return state
+
+
+def k7_lockstep(what, args, **kw):
+    """K7's kernels against their plain stand-ins step by step
+    (``K7Lockstep``), driven by ``run_segments`` as a fit on the card is,
+    and the result against the twin.  ``kw`` goes to both steps'
+    constructors (``layout`` and ``ring`` to ``KernelSteps`` only).
+    Returns the lockstep (its ``times`` and ``work``) and
+    ``run_segments``'s counts."""
+    import torch
+
+    from adelie_tpu_torch.solver import screened_cd_kernels as kc
+
+    plain_kw = {k: v for k, v in kw.items() if k == "log_sweeps"}
+    lock = K7Lockstep(what, kc.KernelSteps(*args, **kw),
+                      kc.PlainSteps(*[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args], **plain_kw),
+                      args[0].element_size())
+    state, n = kc.run_segments(lock, args[10])
+    twin = kc.screened_cd_solve_ref(*[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args])
+    k7_same(what, lock.ks.result(state), twin)
+    return lock, n
 
 
 def k7_phase(card):
     """K7 bit-equal to its twin in 32 cases (float32 and float64, box and
-    pinball, S in {64, 1000, 2048, 8192}, cold and warm), then the floor
-    (every delta 0) in float32 at S = 1000 and 8192.  Returns the cases."""
+    pinball, S in {64, 1000, 2048, 8192}, cold and warm), the floor (every
+    delta 0) in float32 at S = 1000 and 8192, then cases that force
+    segments (a log of one sweep at S = 2048 in float64, box and pinball),
+    a list too long for the compact vectors and a ring in shared memory (S
+    = 8192 float64, dense warm start), the two smaller layouts forced
+    at S = 2048 float64 warm, and a ring of two rows forced on the "tail"
+    problem, whose every active sweep ends on a stretch of listed updates
+    that do not move (float64 with a log of one sweep, so that every
+    segment ends there; float32 with the whole phase a segment); and K7's
+    kernels against their stand-ins step by step on one segmented problem
+    and on the tail problem with a ring of two rows.  Returns the
+    cases."""
     import torch
 
     from adelie_tpu_torch import _build
@@ -3028,34 +3235,83 @@ def k7_phase(card):
     lib = _build.load()
     out = []
     t0 = time.perf_counter()
+
+    def line(r, extra=""):
+        phase("K7", f"{r['mode']} S={r['S']} {r['dtype']} {r['case']}{extra}"
+              f"{'' if r['in_smem'] else ' (full sweeps in global memory)'}"
+              f": bit-equal to the twin, {r['iters']} sweeps, "
+              f"{r['moves']} moves ({r['rows']} distinct "
+              f"slots of {r['S_val']} valid) of {r['updates']} "
+              f"updates; "
+              f"{r['ms']:.3f} ms ({r['us_per_update']:.3f} us an "
+              f"update, {r['us_per_move']:.3f} a move; the twin "
+              f"{r['plain_ms']:.0f} ms), bound {r['bound_ms']:.4f}"
+              f" ms ({r['bound_by']}), Q's transposition "
+              f"{r['transpose_ms']:.3f} ms; {k7_words(r)} | {card}")
+
+    def case(S, dtype, mode, seed, kind, reps, **kw):
+        r = k7_case(S, dtype, mode, seed=seed, case=kind, reps=reps, **kw)
+        r["in_smem"] = lib.adelie_screened_cd_in_smem(
+            S, torch.empty((), dtype=dtype).element_size())
+        out.append(r)
+        return r
+
     for dtype in (torch.float32, torch.float64):
         for mode in ("box", "pinball"):
             for S in (64, 1000, 2048, 8192):
-                for case in ("cold", "warm"):
-                    r = k7_case(S, dtype, mode, seed=S + len(out), case=case,
-                                reps=3 if S >= 2048 else 10)
-                    r["in_smem"] = lib.adelie_screened_cd_in_smem(
-                        S, torch.empty((), dtype=dtype).element_size())
-                    out.append(r)
-                    phase("K7", f"{mode} S={S} {r['dtype']} {case}"
-                          f"{'' if r['in_smem'] else ' (vectors in global memory)'}"
-                          f": bit-equal to the twin, {r['iters']} sweeps, "
-                          f"{r['moves']} moves ({r['rows']} distinct "
-                          f"slots of {r['S_val']} valid) of {r['updates']} "
-                          f"updates; "
-                          f"{r['ms']:.3f} ms ({r['us_per_update']:.3f} us an "
-                          f"update, {r['us_per_move']:.3f} a move; the twin "
-                          f"{r['plain_ms']:.0f} ms), bound {r['bound_ms']:.4f}"
-                          f" ms ({r['bound_by']}), Q's transposition "
-                          f"{r['transpose_ms']:.3f} ms")
+                for kind in ("cold", "warm"):
+                    line(case(S, dtype, mode, S + len(out), kind,
+                              3 if S >= 2048 else 10))
+    floor = {}
     for S in (1000, 8192):
-        r = k7_case(S, torch.float32, "box", seed=5, case="floor", reps=10)
-        out.append(r)
+        r = case(S, torch.float32, "box", 5, "floor", 10)
+        floor[S] = r["us_per_update"]
         phase("K7", f"floor S={S} float32: {r['updates']} updates, none "
               f"moving, {r['ms']:.4f} ms ({r['us_per_update']:.4f} us an "
               f"update) | {card}")
+    # segments: every active sweep a segment, its replay and a host read
+    for mode in ("box", "pinball"):
+        r = case(2048, torch.float64, mode, 17, "cold", 3, log_sweeps=1)
+        line(r, f" (log of one sweep; floor {floor[1000]:.4f} us an "
+                f"update)")
+        if r["rounds"] < r["iters"] // 2:
+            fail(f"K7 {mode} S=2048 log of one sweep: {r['rounds']} rounds "
+                 f"for {r['iters']} sweeps")
+    r = case(8192, torch.float64, "box", 19, "dense", 3)
+    line(r, f" (floor {floor[8192]:.4f} us an update)")
+    if r["layout"] == 2:
+        fail(f"K7 S=8192 float64 dense: a list of {r['na_max']} kept its "
+             f"vectors in shared memory")
+    for layout in (1, 0):
+        r = case(2048, torch.float64, "box", 23 + layout, "warm", 3,
+                 log_sweeps=2, layout=layout)
+        line(r, f" (layout forced to {layout}, log of two sweeps)")
+        if r["layout"] != layout:
+            fail(f"K7 layout {layout} forced, {r['layout']} run")
+    # a ring of two rows, every sweep ending on listed updates that do not
+    # move: the producer may trail the chain there, and must still issue
+    # every row the segment's consumers wait for
+    for dtype, kw in ((torch.float64, dict(log_sweeps=1)),
+                      (torch.float32, {})):
+        r = case(2048, dtype, "box", 31, "tail", 3, ring=2, **kw)
+        line(r, " (a ring of two rows forced)")
+        if r["layout"] == 0 or r["depth"] != 2:
+            fail(f"K7 tail {dtype}: layout {r['layout']}, a ring of "
+                 f"{r['depth']} rows, not two")
     phase("K7", f"{len(out)} cases bit-equal in {time.perf_counter() - t0:.1f}"
           f" s | {card}")
+    for kind, mode, seed, kw in (("warm", "pinball", 29, {}),
+                                 ("tail", "box", 37, dict(ring=2))):
+        args = k7_problem(2048, torch.float64, mode, seed, kind)
+        what = f"steps, {mode} S=2048 float64 {kind}, a log of one sweep"
+        lock, n = k7_lockstep(f"K7 {what}", args, log_sweeps=1, **kw)
+        phase("K7", f"{what}{', a ring of two rows' if kw else ''}: the "
+              "full sweep, gather, active segment and replay kernels "
+              "bit-equal to their stand-ins after every step; "
+              + ", ".join(f"{k} {v[2]} launches ({n[k]} with work) "
+                          f"{v[0]:.3f} ms (stand-in {v[1]:.1f} ms)"
+                          for k, v in lock.times.items())
+              + f", {n['reads']} host reads | {card}")
     return out
 
 
@@ -3340,8 +3596,11 @@ def bvls_phase(ad, card, X, y):
     the twin on the CPU on copies (bit-equal), three timed fits (the first
     two bit-equal), K7's launches; the bounds' KKT in float64 (the gradient
     X^T (y - X b) / n is <= 0 at a coefficient at 0 and 0 inside, both
-    held at 1e-3 max |X^T y / n|).  Returns (launches, K7's numbers at the
-    largest replayed call)."""
+    held at 1e-3 max |X^T y / n|).  The first timed fit's K7 launches, those
+    whose work the state showed, and its peak device memory above what was
+    allocated before it; the run fails unless the gather and the replay
+    did work.  Returns (launches, K7's numbers at the largest replayed
+    call, with the launches that worked)."""
     import numpy as np
     import torch
 
@@ -3358,20 +3617,27 @@ def bvls_phase(ad, card, X, y):
     t0 = time.perf_counter()
     replay = k7_replay("A1 warm-up", calls)
     replay_s = time.perf_counter() - t0
-    zero_counts(kc.launches)
+    zero_counts(kc.launches, kc.segments, kc.worked)
     walls, states = [], []
     for i in range(3):
+        if i == 0:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         wall, st = timed(run)
         if i == 0:
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
             counts = dict(kc.launches)
+            worked = dict(kc.worked)
+            seg = dict(kc.segments)
         walls.append(wall)
         states.append(st)
     st = states[0]
     if not (np.array_equal(st.beta, states[1].beta)
             and st.loss == states[1].loss):
         fail("A1: two timed fits differ")
-    if counts["screened_cd_solve"] <= 0:
-        fail("A1: K7 launched no time")
+    for name, did in worked.items():
+        if did <= 0:
+            fail(f"A1: K7's {name} did no work ({counts[name]} launches)")
     Xd = torch.as_tensor(X, device=DEV).double()
     y64 = torch.as_tensor(y, device=DEV).double()
     b = torch.as_tensor(st.beta, device=DEV).double()
@@ -3390,20 +3656,62 @@ def bvls_phase(ad, card, X, y):
     S, plain_ms, info, rows = replay[i_big]
     S_val = int(calls[i_big][0][6].sum())
     b_ms, b_by = k7_bound(S, S_val, 4, info[3], rows, info[4])
+    # the gather and the replay at that call: each against its stand-in
+    # step by step, its time a launch, its bound, and one PyTorch call
+    # each: the gather's indexing, and for the replay the gather of the
+    # listed rows' other columns and a GEMV by the log's deltas summed a
+    # listed slot (the replay's function up to rounding)
+    lock, n_work = k7_lockstep(f"A1 K7 call {i_big} steps", args)
+    times, work = lock.times, lock.work
+    Qt = args[0].mT
+    idx = torch.as_tensor(work["list"], dtype=torch.long, device=DEV)
+    ridx = torch.as_tensor(work["rest"], dtype=torch.long, device=DEV)
+    dsum = torch.as_tensor(work["log"].reshape(-1, len(idx)).sum(0),
+                           device=DEV)
+    g_rest = torch.zeros(len(ridx), dtype=Qt.dtype, device=DEV)
+    lib_ms = {"gather": cuda_ms(lambda: Qt[idx[:, None], idx], reps=10),
+              "replay": cuda_ms(lambda: torch.addmv(
+                  g_rest, Qt[idx[:, None], ridx].T, dsum, alpha=-1),
+                  reps=10)}
+    parts = {}
+    for step, key in (("gather", "screened_cd_gather"),
+                      ("replay", "screened_cd_replay")):
+        k_ms, p_ms, launched = times[step]
+        nb = work[f"{step}_bytes"]
+        ops = work.get(f"{step}_ops", 0)
+        bd = bound(nb / max(launched, 1), ops / max(launched, 1))
+        parts[key] = dict(ms=k_ms / max(launched, 1),
+                          plain_ms=p_ms / max(launched, 1), bound_ms=bd[0],
+                          bound_by=bd[1], launched=launched,
+                          worked=n_work[step], library_ms=lib_ms[step])
     k7_main = dict(S=S, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, moves=int(info[3]), updates=int(info[4]),
-                   rows=rows, S_val=S_val, iters=int(info[1]))
+                   rows=rows, S_val=S_val, iters=int(info[1]), parts=parts,
+                   worked=worked)
     phase("bvls", f"A1 bvls(X, y, 0, inf) n={n} p={p} f32: "
           f"{walls_words(walls, warm)}, two timed fits bit-equal, KKT "
           f"rounds {st.n_kkt}, screen {st.screen_set_size}, active "
-          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts}; "
+          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts} "
+          f"(with work {worked}), peak {peak:.4f} GiB above the inputs; "
           f"bound KKT (float64) {kkt_lo:.2e} at 0, {kkt_in:.2e} inside; "
           f"the warm-up's {len(calls)} K7 calls (S {[r[0] for r in replay]})"
           f" bit-equal to the twin ({replay_s:.1f} s); K7 at S={S}: "
           f"{ms:.3f} ms ({info[3]:.0f} moves on {rows} distinct "
           f"slots of {S_val} valid, {info[4]:.0f} updates, "
           f"{ms * 1e3 / max(info[4], 1):.3f} us an update), the twin "
-          f"{plain_ms:.0f} ms, bound {b_ms:.4f} ms ({b_by}) | {card}")
+          f"{plain_ms:.0f} ms, bound {b_ms:.4f} ms ({b_by}); the first timed"
+          f" fit's K7: {seg['fits']} fits, {seg['rounds']} rounds, "
+          f"{seg['reads']} host reads, longest "
+          f"list {seg['na_max']}, {seg['listed_moves']} of "
+          f"{seg['listed_updates']} listed updates moved; at S={S} its "
+          f"kernels bit-equal to their stand-ins step by step, "
+          + ", ".join(f"{k} {v['ms']:.4f} ms a launch ({v['launched']} "
+                      f"launches, {v['worked']} with work; stand-in "
+                      f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.5f} ms "
+                      f"({v['bound_by']}), library {v['library_ms']:.4f} ms)"
+                      for k, v in parts.items())
+          + " (library: the gather's torch indexing; the replay's indexing "
+          f"and addmv) | {card}")
     del Xm, Xd
     return counts, k7_main
 
@@ -3438,13 +3746,19 @@ def pinball_fista(A, S, v, pn, pp, max_iters=20000, tol=1e-14):
     return x
 
 
+# A2's sweeps in the twin's order (the JAX package's fit of this problem
+# counts as many)
+A2_SWEEPS = 64427
+
+
 def pinball_phase(ad, card, m=4096, d=1024):
     """A2, pinball: A (4,096, 1,024) Gaussian, S a Wishart (1,024, 1,024)
     from 4,096 samples, penalties U(0.5, 1.5), seed 41, float64, ``tol``
     1e-12 (tests/test_aux_solvers.py's, for the objective): one timed fit
-    (a fit takes about a minute: K7 runs tens of thousands of sweeps at
-    S_cap 4,096), K7's launches, the objective against a float64 FISTA on
-    the card.  Returns the launches."""
+    (K7 runs tens of thousands of sweeps at S_cap 4,096), K7's launches,
+    those whose work the state showed (the run fails unless the gather and
+    the replay did work), the fit's peak device memory, the objective
+    against a float64 FISTA on the card.  Returns the launches."""
     import numpy as np
     import torch
 
@@ -3460,11 +3774,18 @@ def pinball_phase(ad, card, m=4096, d=1024):
     def run():
         return ad.pinball(A, S, v, pn, pp, tol=1e-12)
 
-    zero_counts(kc.launches)
-    wall, st = timed(run)
-    counts = dict(kc.launches)
-    if counts["screened_cd_solve"] <= 0:
-        fail("A2: K7 launched no time")
+    zero_counts(kc.launches, kc.worked)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (wall, st), step_ms, step_n, seg = k7_timed(lambda: timed(run))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    counts, worked = dict(kc.launches), dict(kc.worked)
+    for name, did in worked.items():
+        if did <= 0:
+            fail(f"A2: K7's {name} did no work ({counts[name]} launches)")
+    if (m, d) == (4096, 1024) and st.iters != A2_SWEEPS:
+        fail(f"A2: {st.iters} sweeps, not the {A2_SWEEPS} of the twin's "
+             f"order")
     dev = dict(dtype=torch.float64, device=DEV)
     Ad, Sd, vd = (torch.as_tensor(a, **dev) for a in (A, S, v))
     pnd, ppd = torch.as_tensor(pn, **dev), torch.as_tensor(pp, **dev)
@@ -3482,9 +3803,22 @@ def pinball_phase(ad, card, m=4096, d=1024):
     if not (near or ours <= oracle + 3e-7 * st.y_var):
         fail(f"A2: objective {ours:.12g} above FISTA's {oracle:.12g} by "
              f"more than 3e-7 y_var ({st.y_var:.10g})")
+    active_ms = step_ms.get("active", 0.0)
     phase("pinball", f"A2 pinball m={m} d={d} f64 tol 1e-12: wall {wall:.3f} s"
           f" (no warm-up), KKT rounds {st.n_kkt}, screen {st.screen_set_size}, active "
-          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts}; "
+          f"{st.active_set_size}, sweeps {st.iters}, K7 launches {counts} "
+          f"(with work {worked}), peak {peak:.4f} GiB; "
+          f"K7: {seg['fits']} fits, {seg['rounds']} rounds (segments), "
+          f"{seg['reads']} host reads, "
+          f"longest list {seg['na_max']}, device ms: full sweeps "
+          f"{step_ms.get('full', 0.0):.1f}, gather "
+          f"{step_ms.get('gather', 0.0):.3f}, active {active_ms:.1f} "
+          f"({active_ms * 1e3 / max(seg['listed_updates'], 1):.4f} us a "
+          f"listed update, {active_ms * 1e3 / max(seg['listed_moves'], 1):.4f}"
+          f" a listed move; {seg['listed_moves']} of "
+          f"{seg['listed_updates']}), replay "
+          f"{step_ms.get('replay', 0.0):.1f} "
+          f"({step_ms.get('replay', 0.0) / 1e3 / wall:.4f} of the wall); "
           f"objective {ours:.12g} against FISTA's {oracle:.12g} (float64 on "
           f"the card, {t_f:.1f} s; y_var {st.y_var:.10g}, the gap "
           f"{(ours - oracle) / st.y_var:.2e} y_var), beta within "
@@ -4397,10 +4731,20 @@ def main():
          "replaces": "adelie_tpu/solver/screened_cd.py:45 (no TPU kernel: "
                      "an XLA loop)",
          "launches": glm_counts["bvls"]["screened_cd_solve"],
+         "worked": k7_main["worked"]["screened_cd_solve"],
          "max_abs_err": max(r["max_abs_err"] for r in k7),
          "ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
          "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
          "library_ms": None},
+        *({"name": name, "route": "cuda",
+           "source": "adelie_tpu_torch/csrc/screened_cd_kernels.cu",
+           "replaces": "adelie_tpu/solver/screened_cd.py:45 (no TPU kernel: "
+                       "part of K7, for the XLA loop)",
+           "launches": glm_counts["bvls"][name],
+           "worked": k7_main["worked"][name], "max_abs_err": 0.0,
+           **{k: part[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+          for name, part in k7_main["parts"].items()),
         *({"name": name, "route": "cuda",
            "source": "adelie_tpu_torch/csrc/snp_kernels.cu",
            "replaces": replaces, "launches": launches,

@@ -140,6 +140,44 @@ def test_screened_cd_counts_distinct_rows(mode):
     assert info.tolist()[3] == 0 and not moved.any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("mode", ["box", "pinball"])
+def test_screened_cd_segments_keep_the_twins_bits(mode, warm, dtype):
+    """The card's segmented scheme, driven by ``run_segments`` with the
+    kernels' plain stand-ins (a full sweep, the compact block, an active
+    segment that logs its deltas, the replay of the log on the slots not
+    listed) and a log of one sweep, so that every active sweep is a segment
+    and a replay, or of three: beta, grad, flags and info equal the twin's
+    bit for bit, also when the sweep cap cuts an active phase; and no step
+    runs that the state read before it shows has nothing to do."""
+    args = [torch.as_tensor(a) for a in _screened_problem(mode, warm)]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    n0 = dict(kc.launches)
+    for max_iters, log_sweeps in ((100000, 1), (6, 1), (100000, 3)):
+        ref = kc.screened_cd_solve_ref(*args, 0.3, 1e-10, max_iters, 3, mode)
+        stats = {}
+        out = kc.screened_cd_solve_segmented(*args, 0.3, 1e-10, max_iters, 3,
+                                             mode, log_sweeps=log_sweeps,
+                                             stats=stats)
+        for name, x, y in zip(("beta", "grad", "active"), out[:3], ref[:3]):
+            assert x.dtype == y.dtype and torch.equal(x, y), name
+        assert out[3].tolist() == ref[3].tolist()
+        sweeps = ref[3][1].item() - 3
+        # every step had work: a read after each full sweep and segment,
+        # a gather a phase, a replay a segment (some slots are never
+        # listed); with a log of one sweep, a segment an active sweep
+        assert stats["reads"] == stats["full"] + stats["rounds"]
+        assert stats["active"] == stats["replay"] == stats["rounds"]
+        assert 0 < stats["gather"] <= stats["full"]
+        if log_sweeps == 1:
+            assert stats["full"] + stats["rounds"] == sweeps
+            assert stats["rounds"] > (5 if max_iters > 6 else 0)
+        else:
+            assert stats["full"] + stats["rounds"] < sweeps
+    assert kc.launches == n0
+
+
 @pytest.fixture(scope="module")
 def bvls_problem():
     rng = np.random.default_rng(5)
