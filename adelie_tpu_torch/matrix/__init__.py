@@ -1,33 +1,62 @@
-"""Matrix factories mirroring ``adelie_tpu.matrix``: dense, packed SNP in
-device memory, packed SNP streamed from host memory, the wrappers the
-multi-response problem is built of (``concatenate``, ``kronecker_eye``),
-the covariance method's matrices (``dense``, ``eager_cov``, ``lazy_cov``,
-``block_diag`` and ``sparse`` with ``method="cov"``) and the constraint
-matrices (``dense`` and ``sparse`` with ``method="constraint"``)."""
+"""Matrix factories mirroring ``adelie_tpu.matrix``: dense, sparse,
+packed SNP in device memory, packed SNP streamed from host memory, the
+wrappers (``standardize``, ``subset``, ``concatenate``, ``block_diag``,
+``kronecker_eye``), the implicit expansions (``one_hot``,
+``interaction``, ``convex_relu``, ``convex_gated_relu``), the covariance
+method's matrices (``dense``, ``eager_cov``, ``lazy_cov``, ``block_diag``
+and ``sparse`` with ``method="cov"``) and the constraint matrices
+(``dense`` and ``sparse`` with ``method="constraint"``).
+
+A user's matrix subclasses ``MatrixNaiveBase`` (also named
+``PyMatrixNaiveBase``, as in the reference) and implements ``mul``,
+``gather`` and ``tmul`` on tensors; ``grpnet`` and every wrapper take it
+as they take the package's own."""
+
+import torch
 
 from ..configs import configs, matmul_precision
 from ..device import resolve_device
 from ..utils import types
 from ._constraint_mat import MatrixConstraintDense, MatrixConstraintSparse
+from ._convex_relu import MatrixNaiveConvexGatedRelu, MatrixNaiveConvexRelu
+from ._interaction import MatrixNaiveInteractionDense
+from ._one_hot import MatrixNaiveOneHotDense
 from ._snp import MatrixNaiveSNPPhasedAncestry, MatrixNaiveSNPUnphased
 from ._snp_stream import MatrixNaiveSNPUnphasedStreamed
-from ._sparse import MatrixCovSparse
-from .base import MatrixConstraintBase, MatrixCovBase, MatrixNaiveBase
+from ._sparse import MatrixCovSparse, MatrixNaiveSparse
+from .base import (MatrixConstraintBase, MatrixCovBase, MatrixNaiveBase,
+                   MatrixNaiveTranspose)
 from .dense import MatrixCovDense, MatrixCovLazy, MatrixNaiveDense, _as_tensor
-from .wrappers import (MatrixCovBlockDiag, MatrixNaiveCConcatenate,
-                       MatrixNaiveKroneckerEye)
+from .wrappers import (MatrixCovBlockDiag, MatrixNaiveBlockDiag,
+                       MatrixNaiveCConcatenate, MatrixNaiveCSubset,
+                       MatrixNaiveKroneckerEye, MatrixNaiveRConcatenate,
+                       MatrixNaiveRSubset, MatrixNaiveStandardize)
+
+# the reference's names of its user-extensible bases (reference
+# matrix.py:40, 79, 199, 260): here the protocol bases themselves
+PyMatrixNaiveBase = MatrixNaiveBase
+PyMatrixCovBase = MatrixCovBase
+PyMatrixConstraintBase = MatrixConstraintBase
+PyMatrixNaiveTranspose = MatrixNaiveTranspose
 
 __all__ = ["MatrixConstraintBase", "MatrixConstraintDense",
            "MatrixConstraintSparse", "MatrixCovBase", "MatrixCovBlockDiag",
            "MatrixCovDense", "MatrixCovLazy", "MatrixCovSparse",
-           "MatrixNaiveBase", "MatrixNaiveCConcatenate", "MatrixNaiveDense",
-           "MatrixNaiveKroneckerEye", "MatrixNaiveSNPPhasedAncestry",
-           "MatrixNaiveSNPUnphased", "MatrixNaiveSNPUnphasedStreamed",
-           "block_diag", "concatenate", "dense", "eager_cov",
-           "kronecker_eye", "lazy_cov", "snp_phased_ancestry",
-           "snp_unphased", "sparse"]
-
-_STRUCTURED = "ROADMAP.md: structured matrices and user matrices"
+           "MatrixNaiveBase", "MatrixNaiveBlockDiag",
+           "MatrixNaiveCConcatenate", "MatrixNaiveCSubset",
+           "MatrixNaiveConvexGatedRelu", "MatrixNaiveConvexRelu",
+           "MatrixNaiveDense", "MatrixNaiveInteractionDense",
+           "MatrixNaiveKroneckerEye", "MatrixNaiveOneHotDense",
+           "MatrixNaiveRConcatenate", "MatrixNaiveRSubset",
+           "MatrixNaiveSNPPhasedAncestry", "MatrixNaiveSNPUnphased",
+           "MatrixNaiveSNPUnphasedStreamed", "MatrixNaiveSparse",
+           "MatrixNaiveStandardize", "MatrixNaiveTranspose",
+           "PyMatrixConstraintBase", "PyMatrixCovBase", "PyMatrixNaiveBase",
+           "PyMatrixNaiveTranspose", "block_diag", "concatenate",
+           "convex_gated_relu", "convex_relu", "dense", "eager_cov",
+           "interaction", "kronecker_eye", "lazy_cov", "one_hot",
+           "snp_phased_ancestry", "snp_unphased", "sparse", "standardize",
+           "subset"]
 
 
 def _naive(mat, device):
@@ -39,6 +68,14 @@ def _naive(mat, device):
                              f"device={str(device)!r} was asked")
         return mat
     return dense(mat, device=device)
+
+
+def _device_of(mats, device):
+    """``device``, else the device of the first matrix among ``mats``."""
+    if device is None:
+        device = next((m.device for m in mats
+                       if isinstance(m, MatrixNaiveBase)), None)
+    return device
 
 
 def dense(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
@@ -62,19 +99,19 @@ def dense(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
 
 def block_diag(mats, *, method: str = "naive", n_threads: int = 1,
                device=None):
-    """Block-diagonal covariance matrix of ``mats`` (reference
-    matrix.py:198), ``method="cov"``: each array among them becomes a dense
-    covariance matrix on ``device`` (default: the device of the matrices
-    among them, else ``"cuda"``).  The naive block-diagonal matrix is not
-    ported.  ``n_threads`` is accepted for the JAX package's signature and
-    ignored."""
+    """Block-diagonal matrix of ``mats`` (reference matrix.py:198): naive
+    (``method="naive"``: (n, p) matrices, each array among them a dense
+    matrix) or covariance (``"cov"``: each array a dense covariance
+    matrix), on ``device`` (default: the device of the matrices among
+    them, else ``"cuda"``).  ``n_threads`` is accepted for the JAX
+    package's signature and ignored."""
     method = types.matrix_method(method)
-    if method == "naive":
-        raise NotImplementedError(
-            f"block_diag(method='naive') is not ported yet ({_STRUCTURED})")
     if method == "constraint":
         raise ValueError(
             "method 'constraint' is not supported for block_diag")
+    if method == "naive":
+        device = _device_of(mats, device)
+        return MatrixNaiveBlockDiag([_naive(m, device) for m in mats])
     if device is None:
         device = next((m.device for m in mats
                        if isinstance(m, MatrixCovBase)), None)
@@ -103,16 +140,16 @@ def lazy_cov(mat, *, copy: bool = False, n_threads: int = 1, dtype=None,
 
 
 def sparse(mat, *, method: str = "naive", n_threads: int = 1, dtype=None,
-           copy: bool = False, device=None):
-    """A sparse covariance matrix (``method="cov"``: its CSC arrays on
-    ``device``, default ``"cuda"``) or constraint matrix
-    (``"constraint"``), from anything ``scipy.sparse`` takes (reference
-    matrix.py:1301).  The naive sparse matrix is not ported.  ``copy`` and
-    ``n_threads`` are accepted for the JAX package's signature."""
+           copy: bool = False, layout: str = "auto", device=None):
+    """A sparse (n, p) matrix (``method="naive"``, in the ``layout`` of
+    ``MatrixNaiveSparse``), covariance matrix (``"cov"``) or constraint
+    matrix (``"constraint"``) on ``device`` (default ``"cuda"``), from
+    anything ``scipy.sparse`` takes (reference matrix.py:1301).  ``copy``
+    and ``n_threads`` are accepted for the JAX package's signature."""
     method = types.matrix_method(method)
     if method == "naive":
-        raise NotImplementedError(
-            f"sparse(method='naive') is not ported yet ({_STRUCTURED})")
+        return MatrixNaiveSparse(mat, dtype=dtype, layout=layout,
+                                 device=device)
     if method == "cov":
         return MatrixCovSparse(mat, dtype=dtype, device=device)
     return MatrixConstraintSparse(mat, dtype=dtype, device=device)
@@ -151,17 +188,16 @@ def snp_phased_ancestry(io, *, n_threads: int = 1, dtype=None, device=None):
 
 
 def concatenate(mats, *, axis: int = 1, n_threads: int = 1, device=None):
-    """Column-wise concatenation (reference matrix.py:292).  Arrays among
-    ``mats`` become dense matrices on the device of the matrices among
-    them, else on ``device`` (default ``"cuda"``); matrices on different
-    devices raise.  Only ``axis=1`` is ported."""
-    if axis != 1:
-        raise NotImplementedError(
-            f"concatenate(axis={axis}) is not ported yet ({_STRUCTURED})")
-    if device is None:
-        device = next((m.device for m in mats
-                       if isinstance(m, MatrixNaiveBase)), None)
-    return MatrixNaiveCConcatenate([_naive(m, device) for m in mats])
+    """Column-wise (``axis=1``) or row-wise (``axis=0``) concatenation
+    (reference matrix.py:292).  Arrays among ``mats`` become dense
+    matrices on the device of the matrices among them, else on ``device``
+    (default ``"cuda"``); matrices on different devices raise."""
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    device = _device_of(mats, device)
+    mats = [_naive(m, device) for m in mats]
+    return (MatrixNaiveCConcatenate if axis == 1
+            else MatrixNaiveRConcatenate)(mats)
 
 
 def kronecker_eye(mat, K: int, *, copy: bool = False, n_threads: int = 1,
@@ -170,3 +206,69 @@ def kronecker_eye(mat, K: int, *, copy: bool = False, n_threads: int = 1,
     matrix on ``device`` (default ``"cuda"``).  ``copy`` and ``n_threads``
     are accepted for the JAX package's signature and ignored."""
     return MatrixNaiveKroneckerEye(_naive(mat, device), K)
+
+
+def standardize(mat, centers=None, scales=None, ddof: int = 0, *,
+                n_threads: int = 1, device=None):
+    """``(X - 1 c^T) / s``, never formed (reference matrix.py:1414).  The
+    centers default to the column means and the scales to the column
+    standard deviations about them with the divisor ``n - ddof``, both
+    from ``X.mean`` and ``X.var`` with weights 1/n on ``X``'s device.  An
+    array ``mat`` becomes a dense matrix on ``device`` (default
+    ``"cuda"``).  ``n_threads`` is accepted for the JAX package's
+    signature and ignored."""
+    mat = _naive(mat, device)
+    n = mat.rows()
+    w = torch.full((n,), 1.0 / n, dtype=mat.torch_dtype, device=mat.device)
+    centers = mat.mean(w) if centers is None else mat._vec(centers)
+    if scales is None:
+        scales = torch.sqrt(n / (n - ddof) * mat.var(centers, w))
+    return MatrixNaiveStandardize(mat, centers, scales)
+
+
+def subset(mat, indices, *, axis: int = 1, n_threads: int = 1,
+           device=None):
+    """The columns (``axis=1``) or rows (``axis=0``) ``indices`` of
+    ``mat``, never copied; an index may repeat (reference
+    matrix.py:1539).  An array ``mat`` becomes a dense matrix on
+    ``device`` (default ``"cuda"``)."""
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    mat = _naive(mat, device)
+    return (MatrixNaiveCSubset if axis == 1
+            else MatrixNaiveRSubset)(mat, indices)
+
+
+def one_hot(mat, levels=None, *, copy: bool = False, n_threads: int = 1,
+            device=None):
+    """The one-hot expansion of the discrete columns of ``mat`` (column g
+    discrete with ``levels[g] > 0`` levels, its values 0 ..
+    ``levels[g] - 1``), never formed (reference matrix.py:1073), on
+    ``device`` (default ``"cuda"``).  ``copy`` and ``n_threads`` are
+    accepted for the JAX package's signature."""
+    return MatrixNaiveOneHotDense(mat, levels, device=device)
+
+
+def interaction(mat, intr_map, levels=None, *, copy: bool = False,
+                n_threads: int = 1, device=None):
+    """The pairwise interactions of the columns of ``mat`` that
+    ``intr_map`` lists (key: a column; value: the columns it meets, None
+    for all), never formed (reference matrix.py:721), on ``device``
+    (default ``"cuda"``).  ``levels`` as in :func:`one_hot`.  ``copy`` and
+    ``n_threads`` are accepted for the JAX package's signature."""
+    return MatrixNaiveInteractionDense(mat, intr_map, levels, device=device)
+
+
+def convex_relu(mat, mask, *, gated: bool = False, n_threads: int = 1,
+                device=None):
+    """``[D_1 Z, ..., D_m Z]`` (``gated=True``) or ``[Y, -Y]`` of it, with
+    ``D_k = diag(mask[:, k])``, for a dense or scipy.sparse ``Z``, never
+    formed (reference matrix.py:390), on ``device`` (default ``"cuda"``).
+    ``n_threads`` is accepted for the JAX package's signature."""
+    cls = MatrixNaiveConvexGatedRelu if gated else MatrixNaiveConvexRelu
+    return cls(mat, mask, device=device)
+
+
+def convex_gated_relu(mat, mask, *, n_threads: int = 1, device=None):
+    """:func:`convex_relu` with ``gated=True``."""
+    return convex_relu(mat, mask, gated=True, device=device)

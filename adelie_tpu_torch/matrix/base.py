@@ -3,7 +3,8 @@
 Counterpart of ``adelie_tpu/matrix/base.py``.  The solver runs coordinate
 descent in covariance form on a gathered screen block, so a naive (n x p)
 matrix needs only a few products, all returning tensors on the matrix's
-``device``:
+``device`` (a user's matrix implements the first, third and fourth; the
+others have defaults):
 
 - :meth:`mul`       ``X^T (w * v)``, the full weighted gradient
 - :meth:`mul_many`  ``X^T U_c`` for every row of ``U`` at once
@@ -18,13 +19,20 @@ a constraint matrix (``MatrixConstraintBase``, pinball's ``A``) its dense
 """
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+
+from ..configs import matmul_precision
 
 
 class MatrixNaiveBase:
-    """Abstract base.  Subclasses set ``_rows``, ``_cols``, ``dtype`` (a
-    numpy dtype, as in the JAX package), ``torch_dtype`` and ``device``,
-    and implement ``mul``, ``gather`` and ``tmul``."""
+    """Abstract base, and the user protocol: a user's matrix subclasses it,
+    sets ``_rows``, ``_cols``, ``dtype`` (a numpy dtype, as in the JAX
+    package), ``torch_dtype`` and ``device``, and implements ``mul``,
+    ``gather`` and ``tmul`` on tensors on ``device``.  ``sq_mul``,
+    ``mean``, ``var`` and the reference's column and block products
+    derive from those (a subclass may override them); ``@``, ``.T``,
+    ``[...]`` and ``to_dense`` return numpy arrays."""
 
     _rows: int
     _cols: int
@@ -32,15 +40,27 @@ class MatrixNaiveBase:
     torch_dtype: torch.dtype
     device: torch.device
 
+    # columns a derived product gathers at a time
+    _CHUNK = 4096
+
     @property
     def shape(self):
         return (self._rows, self._cols)
+
+    @property
+    def ndim(self):
+        return 2
 
     def rows(self) -> int:
         return self._rows
 
     def cols(self) -> int:
         return self._cols
+
+    def _vec(self, v):
+        """``v`` (array or tensor) as a tensor of the matrix's dtype on its
+        device."""
+        return torch.as_tensor(v, dtype=self.torch_dtype, device=self.device)
 
     def mul(self, v, w):
         """``X^T (w * v)`` -> (p,)."""
@@ -60,15 +80,157 @@ class MatrixNaiveBase:
         """``X @ beta`` for ``beta`` (p,) or (p, L)."""
         raise NotImplementedError
 
+    def _chunked_cols(self):
+        """``(start, block)`` for blocks of at most ``_CHUNK`` columns."""
+        for s in range(0, self._cols, self._CHUNK):
+            e = min(s + self._CHUNK, self._cols)
+            yield s, self.gather(torch.arange(s, e, device=self.device))
+
     def sq_mul(self, w):
-        """``diag(X^T W X)`` -> (p,)."""
-        idx = torch.arange(self._cols, device=self.device)
-        blk = self.gather(idx)
-        return (blk * blk).T @ w
+        """``diag(X^T W X)`` -> (p,), gathered ``_CHUNK`` columns at a
+        time."""
+        w = self._vec(w)
+        with matmul_precision():
+            return torch.cat([w @ (blk * blk)
+                              for _, blk in self._chunked_cols()])
+
+    def mean(self, w):
+        """Weighted column means ``X^T w`` (weights summing to 1)."""
+        w = self._vec(w)
+        return self.mul(torch.ones_like(w), w)
+
+    def var(self, centers, w):
+        """Weighted column variances about ``centers``:
+        ``sum_i w_i (X_ij - c_j)^2``."""
+        w, c = self._vec(w), self._vec(centers)
+        return (self.sq_mul(w) - 2 * c * self.mul(torch.ones_like(w), w)
+                + c * c * w.sum())
+
+    def cmul(self, j, v, w):
+        """``X[:, j]^T (w * v)`` -> 0-d."""
+        col = self.gather([j])[:, 0]
+        return col @ (self._vec(v) * self._vec(w))
+
+    def ctmul(self, j, v):
+        """``v * X[:, j]`` -> (n,)."""
+        return self._vec(v) * self.gather([j])[:, 0]
+
+    def bmul(self, j, q, v, w):
+        """``X[:, j:j+q]^T (w * v)`` -> (q,)."""
+        blk = self.gather(np.arange(j, j + q))
+        with matmul_precision():
+            return (self._vec(v) * self._vec(w)) @ blk
+
+    def btmul(self, j, q, v):
+        """``X[:, j:j+q] @ v`` -> (n,)."""
+        blk = self.gather(np.arange(j, j + q))
+        with matmul_precision():
+            return blk @ self._vec(v)
+
+    def cov(self, j, q, sqrt_weights):
+        """The weighted Gram of the columns ``[j, j+q)`` -> (q, q)."""
+        blk = self.gather(np.arange(j, j + q)) \
+            * self._vec(sqrt_weights)[:, None]
+        with matmul_precision():
+            return blk.T @ blk
+
+    def sp_tmul(self, betas):
+        """``betas @ X^T`` for a scipy.sparse ``betas`` (L, p) -> (L, n):
+        one gather of the columns any row uses, then one product."""
+        betas = sp.csr_matrix(betas)
+        cols = np.unique(betas.indices)
+        if cols.size == 0:
+            return torch.zeros((betas.shape[0], self._rows),
+                               dtype=self.torch_dtype, device=self.device)
+        blk = self.gather(cols)
+        sub = self._vec(betas[:, cols].toarray())
+        with matmul_precision():
+            return sub @ blk.T
+
+    def __matmul__(self, other):
+        return self.tmul(self._vec(other)).cpu().numpy()
+
+    @property
+    def T(self):
+        """A transpose view for ``X.T @ v``."""
+        return MatrixNaiveTranspose(self)
+
+    def __getitem__(self, key):
+        if not isinstance(key, tuple):
+            key = (key, slice(None))
+        rkey, ckey = key
+        if isinstance(ckey, slice):
+            cols = np.arange(*ckey.indices(self._cols))
+        else:
+            cols = np.atleast_1d(np.asarray(ckey, np.int64))
+        return self.gather(cols).cpu().numpy()[rkey]
 
     def to_dense(self):
-        idx = torch.arange(self._cols, device=self.device)
-        return self.gather(idx).cpu().numpy()
+        return torch.cat([blk for _, blk in self._chunked_cols()],
+                         dim=1).cpu().numpy()
+
+
+class MatrixNaiveTranspose:
+    """``X.T`` of a :class:`MatrixNaiveBase`: ``X.T @ v`` for 1-D or 2-D
+    ``v`` as unweighted ``mul`` calls (``X^T v == mul(v, ones)``), a numpy
+    array; nothing is densified."""
+
+    def __init__(self, mat):
+        self._mat = mat
+        self.ndim = 2
+
+    @property
+    def shape(self):
+        n, p = self._mat.shape
+        return (p, n)
+
+    @property
+    def T(self):
+        return self._mat
+
+    def __matmul__(self, v):
+        v = np.asarray(v)
+        if v.ndim < 1 or v.ndim > 2:
+            raise ValueError("Right argument must be 1 or 2-dimensional.")
+        m = self._mat
+        ones = torch.ones(m.rows(), dtype=m.torch_dtype, device=m.device)
+        if v.ndim == 1:
+            return m.mul(m._vec(v), ones).cpu().numpy()
+        return np.stack([m.mul(m._vec(v[:, i]), ones).cpu().numpy()
+                         for i in range(v.shape[1])], axis=1)
+
+
+class FixedSum:
+    """A scatter-add in a fixed order: ``apply(vals)`` returns ``out``
+    (size, ...) with ``out[t] = sum of vals[src[e]] over the entries e
+    whose target[e] == t``, in ascending e.  The entries are laid out once
+    on the host as a (targets, depth) table padded with a zero entry; a
+    gather and a sum along the table's rows replace the atomics of
+    ``index_add_`` on the card, so two runs give the same bits."""
+
+    def __init__(self, target, size, device, src=None):
+        target = np.asarray(target, np.int64).ravel()
+        src = (np.arange(len(target)) if src is None
+               else np.asarray(src, np.int64).ravel())
+        order = np.argsort(target, kind="stable")
+        uniq, first, counts = np.unique(target[order], return_index=True,
+                                        return_counts=True)
+        depth = int(counts.max()) if len(counts) else 1
+        self.n_src = int(src.max()) + 1 if len(src) else 0
+        table = np.full((len(uniq), depth), self.n_src, np.int64)
+        lane = np.arange(len(target)) - np.repeat(first, counts)
+        table[np.repeat(np.arange(len(uniq)), counts), lane] = src[order]
+        # each output's slot in the sums, the last (zero) one if none
+        slot = np.full(size, len(uniq), np.int64)
+        slot[uniq] = np.arange(len(uniq))
+        self._table = torch.as_tensor(table, device=device)
+        self._slot = torch.as_tensor(slot, device=device)
+
+    def apply(self, vals):
+        pad = vals.new_zeros((1,) + tuple(vals.shape[1:]))
+        ext = torch.cat([vals[:self.n_src], pad])
+        sums = ext[self._table].sum(dim=1)
+        return torch.cat([sums, pad])[self._slot]
 
 
 def _index(indices, device):

@@ -247,6 +247,43 @@ A4. float64 on "cuda" and on "cpu": ``gaussian_cov`` on the dense (and
     ``bvls``, ``pinball`` and ``css_cov`` (greedy and swapping, three
     losses): lambdas 1e-10, beta 1e-8, subsets equal.
 
+The structured and user matrices (S0, S1a, S4, S6, S2, S3, S5 after A4;
+S1b after C4).  Each fit cell (``struct_cell``) is a warm-up and two
+timed fits, bit-equal, with its walls, lambdas, peak screen, pin launches
+(and K3's in S1b), a KKT per lambda in float64 from gathered columns
+(zero groups held within 1e-2 lambda, the nonzero groups' stationarity
+reported) and peak memory; where the design has a dense equivalent, a
+fit on it on the card (``struct_vs_dense``: the same count of lambdas,
+lambda 1e-5 relative, beta and intercepts 1e-3 of max |beta|):
+
+S0. every new class at n = 2,000 in float64 (standardize, both subsets,
+    the row concatenation, the naive block-diagonal and sparse matrices
+    in both layouts, one-hot, interaction, gated and full ReLU on dense
+    and sparse Z, a user's matrix): ``mul``, ``tmul``, ``gather``,
+    ``sq_mul``, and ``mean`` and ``var`` where defined, against the same
+    matrix on the CPU and its dense equivalent (1e-12 of the largest
+    entry), and twice on the card, bit-equal;
+S1a. ``standardize(dense(X_raw))``, X_raw the headline's X before its
+    centering, its columns scaled by U(0.5, 5) and shifted by U(-3, 3),
+    100 lambdas to 1e-2 (K1), against the standardized array;
+S1b. ``standardize`` of phase 9's panel, 50 lambdas to 5e-2 (K3, K1);
+S2. a naive sparse matrix, n = 200,000, p = 50,000, density 1e-3 (10
+    million nonzeros, the padded planes), 50 true columns, intercept, 50
+    lambdas to 1e-2; its gradient ``mul`` against its bound (nonzeros x
+    8 B + n x 4 B over 3.35 TB/s) and ``torch.sparse``'s CSR product;
+S3. a glinternet design: n = 100,000, 50 features (the odd ones of 5
+    levels), ``concatenate([one_hot, interaction of the first 10 with
+    all])``, 5,480 columns in 495 groups up to 25 wide, 50 lambdas to
+    5e-2 (K6);
+S4. the headline in four row blocks (``concatenate(axis=0)``), a 90 %
+    row subset, a 75 % column subset and the naive block-diagonal matrix
+    of its halves, 50 lambdas to 1e-2, each against its dense equivalent;
+S5. convex ReLU features of Z (50,000 x 32) under 128 gates, gated
+    (4,096 columns in 128 groups) and full (8,192 in 256), 50 lambdas to
+    5e-2 (K6);
+S6. a user's ``MatrixNaiveBase`` subclass (``M diag(s)`` on the
+    headline) against the scaled array.
+
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
 first timed fit and read after it (K6), zeroed before phase 6's timed fit
@@ -254,8 +291,8 @@ and read after it (K2), zeroed before phase 9 and read after it (K3),
 zeroed before phase 10 and read after it (K4; and before and after 10b's
 timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
 after it (K5, with no K3); each GLM, multi-response, covariance (C1-C4)
-and standalone-solver (A1, A2) cell's, before and after its first timed
-fit (C3's and C4's only fit).  Every kernel must have run on its path, and the kernels' JSON
+and standalone-solver (A1, A2) cell's, and each S cell's, before and
+after its first timed fit (C3's and C4's only fit).  Every kernel must have run on its path, and the kernels' JSON
 gives each kernel's launches on every path that ran it
 (``launches_by_path``).  Any failed phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
@@ -3934,6 +3971,522 @@ def aux_cuda_vs_cpu_phase(ad):
           + "; css_cov subsets equal (greedy and swapping, three losses)")
 
 
+# --------------------------------------------------------------------------- #
+# S0-S6: structured and user matrices                                          #
+# --------------------------------------------------------------------------- #
+
+# a fit on a structured matrix against its dense equivalent, both float32
+# on the card: the products round differently (a wrapper corrects its
+# child's product; a row-split sum adds its parts), so the two paths part
+# by rounding, carried through screening one lambda apart at most
+STRUCT_LMDA_BAR = 1e-5      # relative
+STRUCT_BETA_BAR = 1e-3      # of max |beta|
+
+
+def user_matrix_class(ad):
+    """tests/test_user_extension.py's ``ScaledDense``, ``M diag(s)``, as a
+    user writes it in torch: ``mul``, ``gather`` and ``tmul`` only."""
+    import numpy as np
+    import torch
+
+    class ScaledDense(ad.matrix.MatrixNaiveBase):
+        def __init__(self, M, scales, device):
+            self.device = torch.device(device)
+            self._M = torch.as_tensor(M, device=self.device)
+            self._s = torch.as_tensor(scales, dtype=self._M.dtype,
+                                      device=self.device)
+            self._rows, self._cols = M.shape
+            self.torch_dtype = self._M.dtype
+            self.dtype = np.dtype(str(self._M.dtype).replace("torch.", ""))
+
+        def mul(self, v, w):
+            return self._s * ((v * w) @ self._M)
+
+        def gather(self, indices):
+            idx = torch.as_tensor(indices, device=self.device).long()
+            return self._M[:, idx] * self._s[idx]
+
+        def tmul(self, beta):
+            beta = torch.as_tensor(beta, dtype=self.torch_dtype,
+                                   device=self.device)
+            s = self._s if beta.dim() == 1 else self._s[:, None]
+            return self._M @ (s * beta)
+
+    return ScaledDense
+
+
+def one_hot_dense(Z, levels):
+    """The one-hot expansion written out: a continuous column as it is, a
+    discrete one as its indicator columns."""
+    import numpy as np
+
+    cols = []
+    for g, L in enumerate(levels):
+        if L <= 0:
+            cols.append(Z[:, g:g + 1])
+        else:
+            cols.append((Z[:, g:g + 1] == np.arange(L)).astype(Z.dtype))
+    return np.concatenate(cols, axis=1)
+
+
+def interaction_dense(Z, pairs, levels):
+    """The interaction expansion written out, pair by pair (reference
+    matrix.py:721-876's column order)."""
+    import numpy as np
+
+    def ind(g):
+        return (Z[:, g:g + 1] == np.arange(levels[g])).astype(Z.dtype)
+
+    def star(A, B):
+        return np.stack([A[:, a] * B[:, b] for b in range(B.shape[1])
+                         for a in range(A.shape[1])], axis=1)
+
+    blocks = []
+    for i, j in pairs:
+        zi, zj = Z[:, i:i + 1], Z[:, j:j + 1]
+        one = np.ones_like(zi)
+        if levels[i] <= 0 and levels[j] <= 0:
+            blocks.append(np.concatenate([zi, zj, zi * zj], 1))
+        elif levels[i] <= 0:
+            blocks.append(star(np.concatenate([one, zi], 1), ind(j)))
+        elif levels[j] <= 0:
+            blocks.append(star(ind(i), np.concatenate([one, zj], 1)))
+        else:
+            blocks.append(star(ind(i), ind(j)))
+    return np.concatenate(blocks, axis=1)
+
+
+def relu_dense(Z, mask, gated):
+    import numpy as np
+
+    Y = np.concatenate([mask[:, [k]] * Z for k in range(mask.shape[1])], 1)
+    return Y if gated else np.concatenate([Y, -Y], 1)
+
+
+def levels_data(rng, n, levels, dtype):
+    """Columns with ``levels[g] > 0`` levels draw them uniformly; the
+    others are standard normal."""
+    import numpy as np
+
+    Z = rng.standard_normal((n, len(levels)))
+    for g, L in enumerate(levels):
+        if L > 0:
+            Z[:, g] = rng.integers(0, L, n)
+    return Z.astype(dtype)
+
+
+S0_LEVELS = (0, 5, 0, 5, 0, 3, 2, 0)
+
+
+def structured_cases(ad, n, device, seed=50):
+    """S0's matrices: {name: (matrix on ``device``, dense equivalent)},
+    every new class from the same numpy draws, float64."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    m = ad.matrix
+    kw = dict(device=device)
+    levels = np.asarray(S0_LEVELS)
+    X = rng.standard_normal((n, 40)) * rng.uniform(0.5, 5, 40) \
+        + rng.uniform(-3, 3, 40)
+    c, s = X.mean(0), X.std(0)
+    rows = np.concatenate([rng.permutation(n)[: 9 * n // 10], [3, 3, 7]])
+    cols = np.array([5, 0, 17, 5, 39, 22, 8])
+    h = n // 2
+    bd = np.zeros((n, 40))
+    bd[:h, :20], bd[h:, 20:] = X[:h, :20], X[h:, 20:]
+    Zs = np.where(rng.uniform(size=(n, 300)) < 0.01,
+                  rng.uniform(size=(n, 300)), 0.0)
+    Zl = levels_data(rng, n, levels, np.float64)
+    inter = m.interaction(Zl, {0: None, 1: None, 3: [5, 6]}, levels, **kw)
+    Zr = rng.standard_normal((n, 6))
+    Zrs = np.where(rng.uniform(size=(n, 6)) < 0.3, Zr, 0.0)
+    mask = Zr @ rng.standard_normal((6, 8)) >= 0
+    scales = rng.uniform(0.5, 2.0, 40)
+    return {
+        "standardize": (m.standardize(X, **kw), (X - c) / s),
+        "subset-cols": (m.subset(X, cols, axis=1, **kw), X[:, cols]),
+        "subset-rows": (m.subset(X, rows, axis=0, **kw), X[rows]),
+        "concatenate-rows": (m.concatenate(
+            [X[:h], X[h:h + 300], X[h + 300:]], axis=0, **kw), X),
+        "block-diag": (m.block_diag([X[:h, :20], X[h:, 20:]], **kw), bd),
+        "sparse-padded": (m.sparse(Zs, layout="padded", **kw), Zs),
+        "sparse-dense": (m.sparse(Zs, layout="dense", **kw), Zs),
+        "one-hot": (m.one_hot(Zl, levels, **kw), one_hot_dense(Zl, levels)),
+        "interaction": (inter, interaction_dense(Zl, inter.pairs, levels)),
+        "relu-gated": (m.convex_gated_relu(Zr, mask, **kw),
+                       relu_dense(Zr, mask, True)),
+        "relu-full": (m.convex_relu(Zr, mask, **kw),
+                      relu_dense(Zr, mask, False)),
+        "relu-gated-sparse": (m.convex_gated_relu(
+            sps.csc_matrix(Zrs), mask, **kw), relu_dense(Zrs, mask, True)),
+        "relu-full-sparse": (m.convex_relu(sps.csc_matrix(Zrs), mask, **kw),
+                             relu_dense(Zrs, mask, False)),
+        "user": (user_matrix_class(ad)(X, scales, device), X * scales),
+    }
+
+
+def struct_products(M, n, p, moments, seed=51):
+    """Each product of ``M`` on inputs drawn from ``seed``, as numpy:
+    {name: array}; ``mean`` and ``var`` where the class defines them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    like = dict(dtype=M.torch_dtype, device=M.device)
+    v = torch.as_tensor(rng.standard_normal(n), **like)
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, n) / n, **like)
+    beta = torch.as_tensor(rng.standard_normal(p), **like)
+    idx = torch.as_tensor(rng.choice(p, min(p, 50), replace=False),
+                          device=M.device)
+    out = {"mul": M.mul(v, w), "tmul": M.tmul(beta),
+           "gather": M.gather(idx), "sq_mul": M.sq_mul(w)}
+    if moments:
+        out["mean"] = M.mean(w)
+        out["var"] = M.var(out["mean"], w)
+    return out, (v, w, beta, idx)
+
+
+def structured_products_phase(ad, card, n=2000):
+    """S0: every new class's products on the card against the same matrix
+    on the CPU and against its dense equivalent in numpy, within 1e-12 of
+    the largest entry; the same products twice on the card, bit-equal."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    gpu = structured_cases(ad, n, "cuda")
+    cpu = structured_cases(ad, n, "cpu")
+    worst = {}
+    for name, (Mg, D) in gpu.items():
+        Mc = cpu[name][0]
+        rows, p = D.shape
+        # the interaction matrix defines no mean or var
+        moments = name != "interaction"
+        og, (v, w, beta, idx) = struct_products(Mg, rows, p, moments)
+        og2, _ = struct_products(Mg, rows, p, moments)
+        oc, _ = struct_products(Mc, rows, p, moments)
+        v, w, beta, idx = (x.cpu().numpy() for x in (v, w, beta, idx))
+        dense = {"mul": D.T @ (v * w), "tmul": D @ beta, "gather": D[:, idx],
+                 "sq_mul": (D * D).T @ w}
+        if moments:
+            c, var = D.T @ w, ((D - og["mean"].cpu().numpy()) ** 2).T @ w
+            if name == "one-hot":
+                # mean 0 and var 1 on the indicator columns
+                lv = np.asarray(S0_LEVELS)
+                disc = np.repeat(lv > 0, np.maximum(lv, 1))
+                c[disc], var[disc] = 0.0, 1.0
+            dense["mean"], dense["var"] = c, var
+        err = 0.0
+        for key, a in og.items():
+            if not same_bits(a, og2[key]):
+                fail(f"S0 {name}: {key} twice on the card differs")
+            ag = a.cpu().numpy()
+            scale = max(float(np.abs(dense[key]).max()), 1e-300)
+            e = max(float(np.abs(ag - oc[key].numpy()).max()),
+                    float(np.abs(ag - dense[key]).max())) / scale
+            if not e <= 1e-12:
+                fail(f"S0 {name}: {key} off by {e:.2e} of its largest entry")
+            err = max(err, e)
+        worst[name] = (p, err, sorted(og))
+    phase("S0", f"products at n={n} f64, card against the CPU and the dense "
+          f"equivalent (bar 1e-12 of the largest entry), twice bit-equal on "
+          f"the card; {len(worst)} matrices in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{k} (p={p}) {e:.1e}" for k, (p, e, _) in
+                      worst.items()) + f" | {card}")
+    return max(e for _, e, _ in worst.values())
+
+
+def struct_cell(ad, card, what, Xm, y, counters, groups=None, **kw):
+    """One S cell: a warm-up and two timed ``grpnet`` fits on ``Xm``, which
+    must be error-free and bit-equal and launch K1, K2 or K6 (K6 where
+    there are groups); each lambda's KKT in float64 on the card from
+    gathered columns (``snp_grad``, ``group_kkt_parts`` with the default
+    penalties): every zero group within 1e-2 lambda of lambda p_g, the
+    nonzero groups' stationarity reported; the first timed fit's launches
+    and peak device memory.  Returns (state, launches)."""
+    import numpy as np
+    import torch
+
+    warm, _ = fit(ad, Xm, y, groups=groups, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    wall, st = fit(ad, Xm, y, groups=groups, **kw)
+    counts = {k: c[k] for c in counters for k in c}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall2, st2 = fit(ad, Xm, y, groups=groups, **kw)
+    if st.error != "" or st2.error != "":
+        fail(f"{what}: errors {st.error!r} {st2.error!r}")
+    if not same_path(st, st2):
+        fail(f"{what}: two timed fits differ (beta or lambdas)")
+    pins = [counts.get(k, 0) for k in ("pin_lasso_solve",
+                                       "pin_lasso_solve_rows",
+                                       "pin_group_solve")]
+    if sum(pins) <= 0 or (groups is not None and pins[2] <= 0):
+        fail(f"{what}: pin launches {pins} (K1, K2, K6)")
+    G, B, _, _ = snp_grad(Xm, y, st)
+    starts = np.arange(Xm.cols()) if groups is None else np.asarray(groups)
+    sizes = np.diff(np.append(starts, Xm.cols()))
+    v0, v1 = group_kkt_parts(G.T.contiguous(), B, st.lmdas, starts, sizes,
+                             np.sqrt(sizes), 1.0)
+    zero, nonzero = float(v0.max()), float(v1.max())
+    del G, B
+    if not zero <= 1e-2:
+        fail(f"{what}: zero-group KKT violation {zero:.3e} lambda")
+    launches = {k: v for k, v in counts.items() if v}
+    phase(what, f"n={Xm.rows()} p={Xm.cols()} {Xm.dtype}: walls {wall:.3f},"
+          f" {wall2:.3f} s (warm-up {warm:.3f} s), bit-equal; "
+          f"{len(st.lmdas)} lambdas, peak screen {int(max(st.screen_sizes))}"
+          f"{' groups' if groups is not None else ''}, launches {launches}, "
+          f"KKT (float64): zero groups within {zero:.2e} lambda of lambda "
+          f"p_g, nonzero groups' stationarity {nonzero:.2e} lambda; peak "
+          f"memory {peak:.2f} GiB | {card}")
+    return st, counts
+
+
+def struct_vs_dense(ad, what, st, D, y, **kw):
+    """A structured fit ``st`` against one fit of its dense equivalent
+    ``D`` on the card (after the cell's, so warm): the same count of
+    lambdas, lambdas within ``STRUCT_LMDA_BAR`` relative, coefficients and
+    intercepts within ``STRUCT_BETA_BAR`` of max |beta|; its wall."""
+    import numpy as np
+
+    wall, ref = fit(ad, ad.matrix.dense(D, device="cuda"), y, **kw)
+
+    if ref.error != "" or len(st.lmdas) != len(ref.lmdas):
+        fail(f"{what}: dense equivalent error {ref.error!r}, "
+             f"{len(st.lmdas)} and {len(ref.lmdas)} lambdas solved")
+    lm = float(np.max(np.abs(st.lmdas / ref.lmdas - 1)))
+    B, R = st.betas.toarray(), ref.betas.toarray()
+    scale = float(np.abs(R).max())
+    b = float(np.abs(B - R).max()) / scale
+    b0 = float(np.abs(np.asarray(st.intercepts)
+                      - np.asarray(ref.intercepts)).max()) / scale
+    phase(what, f"against its dense equivalent (f32 on the card, wall "
+          f"{wall:.3f} s): "
+          f"{len(st.lmdas)} and {len(ref.lmdas)} lambdas solved, max lambda "
+          f"rel diff {lm:.1e} (bar {STRUCT_LMDA_BAR:.0e}), max beta diff "
+          f"{b:.2e} and intercept diff {b0:.2e} of max|beta| (bar "
+          f"{STRUCT_BETA_BAR:.0e})")
+    if lm > STRUCT_LMDA_BAR or b > STRUCT_BETA_BAR or b0 > STRUCT_BETA_BAR:
+        fail(f"{what}: past the bars")
+
+
+def standardize_dense_phase(ad, card, counters, y, n=40000, p=2000):
+    """S1a: the headline's X before its centering (``headline_problem``'s
+    first draw), each column scaled by U(0.5, 5) and shifted by
+    U(-3, 3), as ``standardize(dense(X_raw))``, against ``grpnet`` on the
+    standardized array (float64 on the host, then float32)."""
+    import numpy as np
+
+    X = np.random.default_rng(0).standard_normal((n, p)).astype(np.float32)
+    rng = np.random.default_rng(15)
+    X *= rng.uniform(0.5, 5, p).astype(np.float32)
+    X += rng.uniform(-3, 3, p).astype(np.float32)
+    kw = dict(lmda_path_size=100, min_ratio=1e-2, early_exit=False,
+              device="cuda")
+    Xm = ad.matrix.standardize(ad.matrix.dense(X, device="cuda"))
+    st, counts = struct_cell(ad, card, "S1a", Xm, y, counters, **kw)
+    X64 = X.astype(np.float64)
+    Xs = ((X64 - X64.mean(0)) / X64.std(0)).astype(np.float32)
+    del X64
+    struct_vs_dense(ad, "S1a", st, Xs, y, **kw)
+    return counts
+
+
+def standardize_snp_phase(ad, card, counters, Xm9, y9):
+    """S1b: ``standardize`` of phase 9's SNP panel in device memory (its
+    centers and scales from K3 and the decoded columns), 50 lambdas to
+    5e-2: K3 under the wrapper's ``mul``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xs = ad.matrix.standardize(Xm9)
+    torch.cuda.synchronize()
+    phase("S1b", f"standardize(snp_unphased) built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    _, counts = struct_cell(ad, card, "S1b", Xs, y9, counters,
+                            lmda_path_size=50, min_ratio=5e-2, device="cuda")
+    if counts["snp_mul"] <= 0:
+        fail("S1b: the standardized SNP fit launched K3 no time")
+    return counts
+
+
+def sparse_design(n, p, density, seed):
+    """A CSC matrix of ``density n p`` entries at uniform positions with
+    U(0, 1) values, float32 (bench.py:254-295's ``sp.random``, drawn as
+    rows and columns: the few positions drawn twice add)."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    nnz = int(density * n * p)
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, p, nnz)
+    vals = rng.uniform(size=nnz).astype(np.float32)
+    return sps.csc_matrix((vals, (rows, cols)), shape=(n, p))
+
+
+def sparse_phase(ad, card, counters, n=200_000, p=50_000, density=1e-3,
+                 k=50, seed=52):
+    """S2: the naive sparse matrix in padded planes, 50 true columns,
+    intercept, 50 lambdas to 1e-2; then its gradient ``mul`` against its
+    bound and against ``torch.sparse``'s CSR product."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    Xsp = sparse_design(n, p, density, seed)
+    rng = np.random.default_rng(seed + 1)
+    true = rng.choice(p, k, replace=False)
+    y = (Xsp[:, true] @ (5 * rng.standard_normal(k)) + 1.0
+         + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    synth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xm = ad.matrix.sparse(Xsp, device="cuda")
+    torch.cuda.synchronize()
+    if Xm.layout != "padded":
+        fail(f"S2: 'auto' chose the {Xm.layout} layout")
+    phase("S2", f"n={n} p={p} nnz={Xsp.nnz} (density {Xsp.nnz / n / p:.2e})"
+          f", planes of {Xm._cidx.shape[1]} (columns) and "
+          f"{Xm._ridx.shape[1]} (rows) lanes; synthesis {synth:.1f} s, "
+          f"upload {time.perf_counter() - t0:.1f} s")
+    st, counts = struct_cell(ad, card, "S2", Xm, y, counters,
+                             lmda_path_size=50, min_ratio=1e-2, device="cuda")
+    hits = len(set(st.betas[-1].tocoo().col.tolist()) & set(true.tolist()))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(n, device="cuda", generator=gen)
+    ones = torch.ones(n, device="cuda")
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(Xsp.indptr.astype(np.int64), device="cuda"),
+        torch.as_tensor(Xsp.indices.astype(np.int64), device="cuda"),
+        torch.as_tensor(Xsp.data, device="cuda"), size=(p, n))
+    got, lib = Xm.mul(u, ones), (csr @ u[:, None])[:, 0]
+    err = float((got - lib).abs().max() / lib.abs().max())
+    if not err <= 1e-5:
+        fail(f"S2: mul against torch.sparse off by {err:.2e}")
+    ms = cuda_ms(lambda: Xm.mul(u, ones), 50)
+    lib_ms = cuda_ms(lambda: csr @ u[:, None], 50)
+    bound_ms = (Xsp.nnz * 8 + n * 4) / HBM_BYTES_S * 1e3
+    phase("S2", f"{hits}/{k} true columns in the last beta; gradient mul "
+          f"{ms:.4f} ms, bound {bound_ms:.4f} ms (nnz x 8 B + n x 4 B over "
+          f"3.35 TB/s: {bound_ms / ms:.3f} of it), torch.sparse CSR product "
+          f"{lib_ms:.4f} ms, relative gap {err:.1e} | {card}")
+    return counts
+
+
+def glinternet_phase(ad, card, counters, n=100_000, d=50, L=5, seed=53):
+    """S3: a glinternet design (Lim and Hastie 2015): 50 features, the odd
+    ones categorical with 5 levels; ``concatenate([one_hot(Z),
+    interaction(Z, {k: None for k < 10})])``, one group a feature and a
+    pair; y from 4 main effects and 4 interactions plus noise; 50 lambdas
+    to 5e-2 (K6)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    levels = np.array([0 if g % 2 == 0 else L for g in range(d)])
+    Z = levels_data(rng, n, levels, np.float32)
+    m = ad.matrix
+    oh = m.one_hot(Z, levels, device="cuda")
+    it = m.interaction(Z, {k: None for k in range(10)}, levels,
+                       device="cuda")
+    Xm = m.concatenate([oh, it])
+    widths = np.where(levels <= 0, 1, levels)
+    groups = np.concatenate([np.cumsum(widths) - widths,
+                             oh.cols() + it.groups])
+    sizes = np.diff(np.append(groups, Xm.cols()))
+    if (Xm.cols(), len(groups), len(it.pairs), int(sizes.max())) \
+            != (5480, 495, 445, 25):
+        fail(f"S3: {Xm.cols()} columns in {len(groups)} groups, "
+             f"{len(it.pairs)} pairs, largest group {sizes.max()}")
+    z = Z.astype(np.float64)
+    zi = z.astype(np.int64)
+    e = [rng.standard_normal(s) for s in ((L,), (L,), (L,), (L, L), (L,))]
+    y = (z[:, 0] + e[0][zi[:, 1]] + 0.8 * z[:, 2] + e[1][zi[:, 3]]
+         + 0.6 * z[:, 0] * z[:, 2] + e[2][zi[:, 1]] * z[:, 4]
+         + e[3][zi[:, 3], zi[:, 5]] + e[4][zi[:, 7]] * z[:, 0]
+         + rng.standard_normal(n)).astype(np.float32)
+    return struct_cell(ad, card, "S3", Xm, y, counters, groups=groups,
+                       lmda_path_size=50, min_ratio=5e-2, device="cuda")[1]
+
+
+def wrappers_phase(ad, card, counters, X, y):
+    """S4: the headline through the wrappers, each against ``grpnet`` on
+    its dense equivalent on the card (intercept, 50 lambdas to 1e-2, no
+    early exit): four row blocks of 10,000 concatenated, a 36,000-row
+    subset (a 90 % fold), a 1,500-column subset, the naive block-diagonal
+    matrix of its two 20,000 x 1,000 halves."""
+    import numpy as np
+
+    n, p = X.shape
+    m = ad.matrix
+    rng = np.random.default_rng(54)
+    fold = np.sort(rng.permutation(n)[:9 * n // 10])
+    cols = np.sort(rng.choice(p, 3 * p // 4, replace=False))
+    h, q = n // 2, p // 2
+    D = np.zeros_like(X)
+    D[:h, :q], D[h:, q:] = X[:h, :q], X[h:, q:]
+    Xd = m.dense(X, device="cuda")
+    kw = dict(lmda_path_size=50, min_ratio=1e-2, early_exit=False,
+              device="cuda")
+    counts = {}
+    for what, Xm, yy, dense in (
+            ("S4 row blocks", m.concatenate(
+                [X[s:s + n // 4] for s in range(0, n, n // 4)], axis=0,
+                device="cuda"), y, X),
+            ("S4 row subset", m.subset(Xd, fold, axis=0), y[fold], X[fold]),
+            ("S4 column subset", m.subset(Xd, cols, axis=1), y, X[:, cols]),
+            ("S4 block-diagonal", m.block_diag(
+                [X[:h, :q], X[h:, q:]], device="cuda"), y, D)):
+        st, counts[what] = struct_cell(ad, card, what, Xm, yy, counters,
+                                       **kw)
+        struct_vs_dense(ad, what, st, dense, yy, **kw)
+    return counts
+
+
+def relu_phase(ad, card, counters, n=50_000, d=32, m=128, seed=55):
+    """S5: convex ReLU features of Z (n, 32) under 128 gates ``Z g_k >=
+    0`` (g_k Gaussian), y from a planted 4-neuron ReLU net plus noise: the
+    gated matrix (4,096 columns in 128 groups of 32) and the full one
+    (8,192 in 256), 50 lambdas to 5e-2 (K6)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    Z = rng.standard_normal((n, d)).astype(np.float32)
+    mask = Z @ rng.standard_normal((d, m)).astype(np.float32) >= 0
+    U = rng.standard_normal((d, 4))
+    signal = np.maximum(Z @ U, 0) @ rng.standard_normal(4)
+    y = (signal + 0.5 * signal.std() * rng.standard_normal(n)) \
+        .astype(np.float32)
+    counts = {}
+    for gated in (True, False):
+        what = "S5 gated ReLU" if gated else "S5 ReLU"
+        Xm = ad.matrix.convex_relu(Z, mask, gated=gated, device="cuda")
+        counts[what] = struct_cell(
+            ad, card, what, Xm, y, counters,
+            groups=np.arange(0, Xm.cols(), d), lmda_path_size=50,
+            min_ratio=5e-2, device="cuda")[1]
+    return counts
+
+
+def user_matrix_phase(ad, card, counters, X, y):
+    """S6: ``user_matrix_class``'s ``M diag(s)`` on the headline (s from
+    U(0.5, 2)), 100 lambdas to 1e-2 with the intercept, against ``grpnet``
+    on the scaled dense array on the card."""
+    import numpy as np
+
+    s = np.random.default_rng(56).uniform(0.5, 2, X.shape[1]) \
+        .astype(np.float32)
+    kw = dict(lmda_path_size=100, min_ratio=1e-2, early_exit=False,
+              device="cuda")
+    Xu = user_matrix_class(ad)(X, s, "cuda")
+    st, counts = struct_cell(ad, card, "S6", Xu, y, counters, **kw)
+    struct_vs_dense(ad, "S6", st, X * s, y, **kw)
+    return counts
+
+
 def main():
     try:
         import numpy as np
@@ -4313,6 +4866,21 @@ def main():
     glm_counts["pinball"] = pinball_phase(ad, card)
     css_phase(ad, card, X)
     aux_cuda_vs_cpu_phase(ad)
+    # S0-S6 but S1b: structured and user matrices, on the headline (S1a,
+    # S4, S6) and on designs of their own (S2, S3, S5)
+    t_struct = time.perf_counter()
+    pins = (tk.launches, pg.launches)
+    structured_products_phase(ad, card)
+    glm_counts["S1a"] = standardize_dense_phase(ad, card, pins, y)
+    glm_counts.update(wrappers_phase(ad, card, pins, X, y))
+    glm_counts["S6"] = user_matrix_phase(ad, card, pins, X, y)
+    torch.cuda.empty_cache()
+    glm_counts["S2"] = sparse_phase(ad, card, pins)
+    torch.cuda.empty_cache()
+    glm_counts["S3"] = glinternet_phase(ad, card, pins)
+    torch.cuda.empty_cache()
+    glm_counts.update(relu_phase(ad, card, pins))
+    struct_s = time.perf_counter() - t_struct
     del X, y, signal5, state
     torch.cuda.empty_cache()
 
@@ -4386,6 +4954,12 @@ def main():
                                                 io9)
     # C4: the summary-statistics GWAS on the same panel
     glm_counts.update(cov_gwas_phase(ad, card, tk, Xm9, io9, y9))
+    # S1b: the same panel standardized
+    t_struct = time.perf_counter()
+    glm_counts["S1b"] = standardize_snp_phase(
+        ad, card, (tk.launches, sk.launches, pg.launches), Xm9, y9)
+    struct_s += time.perf_counter() - t_struct
+    phase("structured", f"S0-S6 took {struct_s:.1f} s in all")
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()

@@ -182,11 +182,15 @@ def test_eager_cov_and_dtypes(problem):
 
 
 def test_refusals(problem):
-    """What stays refused names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="structured matrices"):
-        ta.matrix.block_diag(problem["blocks"], device="cpu")
-    with pytest.raises(NotImplementedError, match="structured matrices"):
-        ta.matrix.sparse(problem["As"], device="cpu")
+    """The naive ``block_diag`` and ``sparse`` (the default method) build
+    and match their dense equivalents; what stays refused names its
+    ROADMAP item."""
+    bd = ta.matrix.block_diag(problem["blocks"], device="cpu")
+    D = np.zeros((P, P))
+    D[:12, :12], D[12:, 12:] = problem["blocks"]
+    np.testing.assert_allclose(bd.to_dense(), D, rtol=1e-12)
+    spm = ta.matrix.sparse(problem["As"], device="cpu")
+    np.testing.assert_allclose(spm.to_dense(), problem["As"], rtol=1e-12)
     with pytest.raises(ValueError, match="constraint"):
         ta.matrix.block_diag(problem["blocks"], method="constraint",
                              device="cpu")
