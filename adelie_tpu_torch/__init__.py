@@ -20,7 +20,13 @@ The covariance method (``gaussian_cov`` on the covariance matrices of
 ``matrix``) runs the same pin solves; the standalone solvers ``bvls`` and
 ``pinball`` run their fits in the screened coordinate-descent kernel of
 ``solver/screened_cd_kernels.py``, and ``css_cov`` selects column subsets.
-ROADMAP.md lists what comes next.
+The model-selection layer: ``cv_grpnet`` (K-fold CV, the folds one after
+another), ``diagnostic`` (predictions, gradients, KKT scores, plots),
+``state`` (the solver states, ``check_state``, the fixed-screen pin states,
+warm-start save and load) and the scikit-learn estimators
+``GroupElasticNet`` and ``CSSModelSelection``.  ``cv``, ``diagnostic`` and
+``sklearn`` load at first use, and the plots and estimators import
+matplotlib and scikit-learn only then.  ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"
@@ -30,6 +36,25 @@ from .configs import configs, set_configs
 from .logger import logger, logger_level
 from .solver import bvls, css_cov, gaussian_cov, grpnet, pinball
 
-__all__ = ["bcd", "bvls", "configs", "css_cov", "data", "gaussian_cov",
+__all__ = ["CSSModelSelection", "GroupElasticNet", "bcd", "bvls", "configs",
+           "css_cov", "cv", "cv_grpnet", "data", "diagnostic", "gaussian_cov",
            "glm", "grpnet", "io", "logger", "logger_level", "matrix",
-           "pinball", "set_configs", "solver", "state"]
+           "pinball", "set_configs", "sklearn", "solver", "state"]
+
+
+def __getattr__(name):
+    # the model-selection modules load at first use (adelie_tpu/__init__.py
+    # :60-85); none imports matplotlib or scikit-learn at import but
+    # ``sklearn``
+    import importlib
+
+    if name in ("cv", "diagnostic", "sklearn"):
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    if name == "cv_grpnet":
+        return importlib.import_module(".cv", __name__).cv_grpnet
+    if name in ("GroupElasticNet", "CSSModelSelection"):
+        return getattr(importlib.import_module(".sklearn", __name__), name)
+    raise AttributeError(
+        f"module 'adelie_tpu_torch' has no attribute {name!r}")

@@ -50,6 +50,10 @@ class Configs:
     # trajectory, and so the iterate within solver tolerance, can differ
     # from the in-device driver's; False reproduces that driver's path.
     stream_speculative_union: bool = True
+    # Run state.check_state after every certified chunk of the streamed
+    # drivers (the reference's always-on state audits; it costs host time
+    # at each chunk boundary).  A debug aid for runs at full scale.
+    debug_check_state: bool = False
 
 
 _default = Configs()

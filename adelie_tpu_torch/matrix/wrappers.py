@@ -20,6 +20,7 @@ tests.
 """
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..configs import matmul_precision
@@ -43,6 +44,34 @@ def _common(mats):
                          f"{sorted(str(d) for d in dtypes)}")
     m = mats[0]
     return np.dtype(m.dtype), m.torch_dtype, m.device
+
+
+def _any_streaming(mats):
+    return any(getattr(m, "is_streaming", False) for m in mats)
+
+
+def refuse_wrapped_stream(X):
+    """Raise ``NotImplementedError`` for a wrapper in ``X`` that holds a
+    host-streamed matrix where the streamed drivers cannot take it: they
+    take the bare panel, a column concatenation holding it and
+    ``X (x) I_K`` of either.  The JAX package refuses every other wrapper
+    of a streamed panel (its ``mul_spec``): each of its products would be
+    a pass over the panel, and no streamed KKT would certify the path."""
+    if not getattr(X, "is_streaming", False):
+        return
+    if isinstance(X, MatrixNaiveCConcatenate):
+        for m in X._children:
+            refuse_wrapped_stream(m)
+    elif isinstance(X, MatrixNaiveKroneckerEye):
+        refuse_wrapped_stream(X.child)
+    elif isinstance(X, (MatrixNaiveStandardize, MatrixNaiveCSubset,
+                        MatrixNaiveRSubset, MatrixNaiveRConcatenate,
+                        MatrixNaiveBlockDiag)):
+        raise NotImplementedError(
+            f"{type(X).__name__} over a host-streamed SNP matrix is not "
+            "supported: the streamed driver takes only the bare panel "
+            "(matrix.snp_unphased(..., streaming=True)) or a column "
+            "concatenation of it (matrix.concatenate(..., axis=1))")
 
 
 def _index_np(indices):
@@ -71,7 +100,7 @@ class MatrixNaiveCConcatenate(MatrixNaiveBase):
 
     @property
     def is_streaming(self):
-        return any(getattr(m, "is_streaming", False) for m in self._children)
+        return _any_streaming(self._children)
 
     @property
     def sweeps(self):
@@ -124,6 +153,10 @@ class MatrixNaiveStandardize(MatrixNaiveBase):
         self._scales = self._vec(scales)
 
     @property
+    def is_streaming(self):
+        return bool(getattr(self._child, "is_streaming", False))
+
+    @property
     def centers(self):
         return self._centers
 
@@ -168,6 +201,10 @@ class MatrixNaiveCSubset(MatrixNaiveBase):
         # tmul's beta into the child's columns: repeated columns add
         self._to_child = FixedSum(sub, mat.cols(), self.device)
 
+    @property
+    def is_streaming(self):
+        return bool(getattr(self._child, "is_streaming", False))
+
     def mul(self, v, w):
         return self._child.mul(v, w)[self._subset]
 
@@ -194,6 +231,10 @@ class MatrixNaiveRSubset(MatrixNaiveBase):
         self._subset = torch.as_tensor(sub, device=self.device)
         # an (n_sub,) vector laid out on the child's rows: repeated rows add
         self._to_child = FixedSum(sub, mat.rows(), self.device)
+
+    @property
+    def is_streaming(self):
+        return bool(getattr(self._child, "is_streaming", False))
 
     def _expand(self, v):
         return self._to_child.apply(self._vec(v))
@@ -230,6 +271,10 @@ class MatrixNaiveRConcatenate(MatrixNaiveBase):
         self._row_offsets = np.concatenate(
             [[0], np.cumsum([m.rows() for m in mats])]).astype(np.int64)
         self._rows = int(self._row_offsets[-1])
+
+    @property
+    def is_streaming(self):
+        return _any_streaming(self._children)
 
     def _split(self, v):
         o = self._row_offsets
@@ -273,6 +318,10 @@ class MatrixNaiveBlockDiag(MatrixNaiveBase):
             [[0], np.cumsum([m.cols() for m in mats])]).astype(np.int64)
         self._rows = int(self._row_offsets[-1])
         self._cols = int(self._col_offsets[-1])
+
+    @property
+    def is_streaming(self):
+        return _any_streaming(self._children)
 
     def _rows_of(self, c):
         return slice(int(self._row_offsets[c]), int(self._row_offsets[c + 1]))
@@ -372,6 +421,19 @@ class MatrixNaiveKroneckerEye(MatrixNaiveBase):
     def tmul(self, beta):
         p, K = self._child.cols(), self._K
         return self._child.tmul(self._vec(beta).reshape(p, K)).reshape(-1)
+
+    def sp_tmul(self, betas):
+        """``betas @ X^T`` (L, n K) for a scipy.sparse ``betas`` (L, p K):
+        one child ``sp_tmul`` of the (L K, p) rows ``B[l, q K + k]`` at
+        column q of row ``l K + k``, so the Kronecker's columns are never
+        gathered."""
+        B = sp.coo_matrix(betas)
+        L, K, n = B.shape[0], self._K, self._child.rows()
+        rows = B.row * K + B.col % K
+        child = sp.csr_matrix((B.data, (rows, B.col // K)),
+                              shape=(L * K, self._child.cols()))
+        out = self._child.sp_tmul(child)                   # (L K, n)
+        return out.reshape(L, K, n).transpose(1, 2).reshape(L, n * K)
 
     def sq_mul(self, w):
         n, K = self._child.rows(), self._K

@@ -23,6 +23,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import matrix as matrix_mod
+from ..matrix.wrappers import refuse_wrapped_stream
 from ..configs import configs
 from ..device import resolve_device
 from ..logger import logger
@@ -106,15 +107,13 @@ def grpnet(
     the block update of ``bcd.newton_solver`` in its eigenbasis, to
     ``newton_tol`` within ``newton_max_iters`` steps.
 
-    Accepted for the JAX package's signature and ignored: ``n_threads``
-    and ``progress_bar``.  ``check_state=True`` raises
-    ``NotImplementedError`` until the state checks are ported (ROADMAP.md:
-    the model-selection layer).
+    ``check_state=True`` audits the finished state with
+    ``state.check_state`` (an ``AssertionError`` names what failed).  A
+    wrapper of a host-streamed matrix but a column concatenation or
+    ``matrix.kronecker_eye`` raises ``NotImplementedError``, as in the JAX
+    package.  Accepted for the JAX package's signature and ignored:
+    ``n_threads`` and ``progress_bar``.
     """
-    if check_state:
-        raise NotImplementedError(
-            "check_state=True is not ported yet (ROADMAP.md: the "
-            "model-selection layer)")
     screen_rule = types.screen_rule(screen_rule)
     if constraints is not None and any(c is not None for c in constraints):
         raise NotImplementedError(
@@ -122,6 +121,7 @@ def grpnet(
     is_gaussian_opt = glm.name in ("gaussian", "multigaussian") and glm.opt
 
     X = _as_matrix(X, device)
+    refuse_wrapped_stream(X)
     if (not glm.is_multi and intercept
             and isinstance(X, matrix_mod.MatrixNaiveKroneckerEye)):
         # its screen block forms no centered Gram: the multi-response
@@ -192,7 +192,13 @@ def grpnet(
         logger.error(f"solver: {exc}\n{traceback.format_exc()}")
 
     state = finalize_state(state)
-    return finalize_multi(state) if glm.is_multi else state
+    if glm.is_multi:
+        state = finalize_multi(state)
+    if check_state:
+        from ..state import check_state as _check
+
+        _check(state)
+    return state
 
 
 def _single_problem(X, glm, groups, penalty, y_arr, offsets_np, warm_start,

@@ -326,15 +326,12 @@ def gaussian_cov(
     which becomes a dense one on ``device`` (default ``"cuda"``;
     ``device="cpu"`` for the CPU).  ``intercepts`` are all 0 and ``devs``
     are the ``rsqs``.  Accepted for the JAX package's signature and
-    ignored: ``n_threads`` and ``progress_bar``.  ``check_state=True`` and
-    constraints raise ``NotImplementedError`` until they are ported
-    (ROADMAP.md: the model-selection layer; constraints)."""
+    ignored: ``n_threads`` and ``progress_bar``.  ``check_state=True``
+    audits the finished state (``state.check_state``); constraints raise
+    ``NotImplementedError`` until they are ported (ROADMAP.md:
+    constraints)."""
     from . import finalize_state
 
-    if check_state:
-        raise NotImplementedError(
-            "check_state=True is not ported yet (ROADMAP.md: the "
-            "model-selection layer)")
     screen_rule = types.screen_rule(screen_rule)
     if constraints is not None and any(c is not None for c in constraints):
         raise NotImplementedError(
@@ -424,4 +421,9 @@ def gaussian_cov(
 
         state.error = str(exc)
         logger.error(f"gaussian_cov: {exc}\n{traceback.format_exc()}")
-    return finalize_state(state)
+    state = finalize_state(state)
+    if check_state:
+        from ..state import check_state as _check
+
+        _check(state)
+    return state

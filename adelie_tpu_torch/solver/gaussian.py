@@ -49,6 +49,22 @@ class GaussianNaiveDriver:
     def large_lmda(self):
         return large_lmda(self.s.dtype)
 
+    # pin mode (``state.gaussian_pin_naive``): the screen set is fixed, so
+    # every group counts as screened, the KKT verdict is vacuous and the
+    # chunk loop accepts every converged fit (JAX package
+    # ``solver/gaussian.py:67-77``)
+    pin_mode = False
+    _all_screened = None
+
+    def _screen_mask(self):
+        s = self.s
+        if not self.pin_mode:
+            return s.screen_mask_dev()
+        if self._all_screened is None:
+            self._all_screened = torch.ones(len(s.groups), dtype=torch.bool,
+                                            device=s.device)
+        return self._all_screened
+
     def _append_beta(self, screen_beta, cache):
         """Append the screen's coefficients as a sparse row of length p."""
         s = self.s
@@ -108,7 +124,7 @@ class GaussianNaiveDriver:
             s.X, cache, w=s.weights, X_means=s.X_means,
             group_cols=s._group_cols, penalty_cols=s._penalty_cols,
             penalty_groups=self._penalty_groups_dev,
-            is_screen=s.screen_mask_dev(), alpha=s.alpha,
+            is_screen=self._screen_mask(), alpha=s.alpha,
             intercept=s.intercept,
         )
         carry, emits = gaussian_chunk_step(

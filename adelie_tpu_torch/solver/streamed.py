@@ -28,8 +28,9 @@ pass over the processed lambdas' gradients ``glm.gradient(eta_c)`` (already
 weighted; no centering, the intercept being a coordinate of eta) and the
 same certify and rollback.  The multi-response problem runs these
 drivers on ``X (x) I_K`` (``solver/multi.py``): its ``mul_many`` serves the
-C lambdas of a chunk in all K classes in one pass.  Not ported:
-``debug_check_state`` (ROADMAP.md: the model-selection layer) and the
+C lambdas of a chunk in all K classes in one pass.  With
+``configs.debug_check_state`` both drivers audit the state
+(``state.check_state``) after every certified chunk.  Not ported: the
 streamed constrained driver (ROADMAP.md: constraints).
 """
 
@@ -165,6 +166,15 @@ def _union_speculative_violators(s, penalty_groups, screen_mask,
     s.extend_screen_set(idx)
 
 
+def _debug_check(s):
+    """``configs.debug_check_state``: audit the state after a certified
+    chunk (reference ``adelie_tpu/solver/streamed.py:409``)."""
+    if configs.debug_check_state:
+        from ..state import check_state
+
+        check_state(s)
+
+
 class StreamedGaussianDriver(GaussianNaiveDriver):
     """Gaussian BASIL driver over a host-streamed matrix: the in-device
     driver's ``solve_path`` (screening, chunk schedule) with ``_run_chunk``
@@ -250,6 +260,7 @@ class StreamedGaussianDriver(GaussianNaiveDriver):
             _union_speculative_violators(
                 s, self._penalty_groups_dev, s.screen_mask_dev(),
                 abs_grad_all, lm, dones, first_fail=first_fail)
+        _debug_check(s)
         return n_acc, early_stopped, kkt_clean
 
 
@@ -318,4 +329,5 @@ class StreamedGlmDriver(GlmNaiveDriver):
             _union_speculative_violators(
                 s, self._penalty_groups_dev, s.screen_mask_dev(),
                 abs_grad_all, lm, fitoks, first_fail=first_fail)
+        _debug_check(s)
         return n_acc, early_stopped, kkt_clean

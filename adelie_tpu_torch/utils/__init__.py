@@ -14,12 +14,19 @@ import torch
 from . import types
 from .types import screen_rule
 
-__all__ = ["TORCH_DTYPE", "Stopwatch", "bucket", "bucket_pow2", "large_lmda",
-           "screen_rule", "types"]
+__all__ = ["TORCH_DTYPE", "Stopwatch", "bucket", "bucket_pow2", "host",
+           "large_lmda", "screen_rule", "types"]
 
 # the float dtypes the solver runs in, numpy -> torch
 TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                np.dtype(np.float64): torch.float64}
+
+
+def host(v):
+    """``v`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 class Stopwatch:

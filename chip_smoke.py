@@ -284,6 +284,34 @@ S5. convex ReLU features of Z (50,000 x 32) under 128 gates, gated
 S6. a user's ``MatrixNaiveBase`` subclass (``M diag(s)`` on the
     headline) against the scaled array.
 
+The model-selection phases (V1-V3, V5 and V6 after S5, on the headline's
+problems; V4 after S1b, on phase 9's panel).  Each CV cell
+(``cv_cell``) runs ``cv_grpnet`` with 5 folds and seed 0 twice (the two
+runs' fold losses bit-equal), then ``CVGrpnetResult.fit``: the walls of
+the dry fit, each fold and the refit, each fit's launches, ``best_idx``,
+each fold's losses against a float64 recomputation from its coefficients
+on its validation rows (within 1e-4 of max(|loss|, the null loss's
+scale)) and the refit's KKT per lambda in float64; every fit's state
+passes ``check_state``:
+
+V1. the headline (phase 5's problem and keywords, K1);
+V2. G1's logistic data (K1, K2 where a screen passes 1024);
+V3. the grouped headline, phase 5b's 500 groups of 4 (K6);
+V4. the GWAS CV on phase 9's panel in device memory (K3, K1);
+V5. the fixed-screen pin states: ``gaussian_pin_naive`` on the last
+    screen of phase 5's fit over its lambdas (K1), of phase 6's problem
+    refitted at tol 1e-10 (K2; ``V5_BIG_S_TOL``) and of 5b's (K6), and
+    ``gaussian_pin_cov`` on C1's A with phase 5's screen (K1), each
+    against its fit's beta (1e-4 of max |beta|);
+V6. ``diagnostic(state)`` on phase 5's fit (``predict`` against numpy
+    float64 ``X B^T``, the zero groups' ``gradient_scores`` within
+    lambda (1 + 1e-2)); ``save_state`` of the headline stopped at its
+    50th lambda by an ``exit_cond``, ``load_warm_start`` and the rest of
+    the path resumed on the card with ``check_state=True``, against the
+    unbroken fit (lambdas equal, beta 1e-4 of max |beta|); and
+    ``check_state`` on every state of V1-V6 and on phase 5's, 5b's, G1's,
+    M1's and C1's.
+
 Each main path has its launch counts: the counters are zeroed just before
 phase 5's timed fit and read just after it (K1), zeroed before phase 5b's
 first timed fit and read after it (K6), zeroed before phase 6's timed fit
@@ -292,7 +320,8 @@ zeroed before phase 10 and read after it (K4; and before and after 10b's
 timed fit, K4 and K6), and zeroed before phase 14's timed fit and read
 after it (K5, with no K3); each GLM, multi-response, covariance (C1-C4)
 and standalone-solver (A1, A2) cell's, and each S cell's, before and
-after its first timed fit (C3's and C4's only fit).  Every kernel must have run on its path, and the kernels' JSON
+after its first timed fit (C3's and C4's only fit); each V cell's over
+its fits (a CV cell: the first run and the refit).  Every kernel must have run on its path, and the kernels' JSON
 gives each kernel's launches on every path that ran it
 (``launches_by_path``).  Any failed phase exits non-zero.  The last three lines are the kernels' JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``.  Needs
@@ -303,6 +332,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 
 def fail(msg):
@@ -2148,6 +2178,7 @@ def glm_dense_phases(ad, card, tk, pg, X, signal):
              f"lambdas, launches {counts}")
     kkt = glm_dense_kkt("logistic headline", X, st,
                                glm_resid("logit", y1), *ones)
+    audit(ad, "logistic (G1)", st)
     out["logistic"] = counts
     phase("logistic", f"n={n} p={p} f32, {y1.mean():.3f} cases, "
           + glm_cell_line("binomial(y), intercept", st, walls, warm, counts,
@@ -2586,6 +2617,7 @@ def multi_dense_phase(ad, card, tk, pg, X, nz):
              f"lambdas, launches {counts}")
     kkt = multi_kkt("multinomial headline", dense_cols(X), n, p, st,
                     multi_resid("multinomial", Y))
+    audit(ad, "multinomial (M1)", st)
     phase("multinomial", f"n={n} p={p} K={MULTI_K} f32, class shares "
           f"{np.round(Y.mean(0), 3).tolist()}, "
           + glm_cell_line("multinomial(Y), intercept", st, walls, warm,
@@ -3471,6 +3503,7 @@ def cov_dense_phase(ad, card, tk, pg, X, y, ref):
         fail(f"C1: {len(st1.lmdas)} lambdas, launches {c1}")
     ones = np.ones(p, int)
     kkt1 = cov_kkt("C1", A64, v64, st1, np.arange(p), ones, ones)
+    audit(ad, "C1", st1)
     gap = float(np.abs(st1.betas.toarray() - ref.betas.toarray()).max())
     lm_gap = float(np.abs(np.asarray(st1.lmdas) / ref.lmdas - 1).max())
     phase("cov-dense", f"C1 gaussian_cov(eager_cov(X / sqrt(n)), X^T y / n)"
@@ -4487,6 +4520,287 @@ def user_matrix_phase(ad, card, counters, X, y):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# V1-V6: the model-selection layer                                             #
+# --------------------------------------------------------------------------- #
+
+CV_FOLDS = 5
+CV_LOSS_BAR = 1e-4      # a fold's losses against float64 numpy, relative
+V_BETA_BAR = 1e-4       # pin states and resumed fits, of max |beta|
+# V5 on phase 6's problem: at its tol (1e-7) a path and the pin state on
+# its last screen, each converged to tol, part by 1.5e-4 of max |beta|
+# (float32 and float64 alike on the CPU; 6.8e-6 at 1e-10: run
+# tools/pin_state_gap.py), so both fits of that cell run at this tol
+V5_BIG_S_TOL = 1e-10
+AUDITED = []            # (what, failures) of each state check_state read
+
+
+def audit(ad, what, state):
+    """``state.check_state`` of one state: any failure fails the run; the
+    state's name is kept for V6's line."""
+    failures = ad.state.check_state(state, "warn")
+    AUDITED.append((what, len(failures)))
+    if failures:
+        fail(f"check_state on {what}: {failures}")
+
+
+class GrpnetCalls:
+    """Wraps ``adelie_tpu_torch.cv.grpnet`` (every fit of ``cv_grpnet`` and
+    of ``CVGrpnetResult.fit``): each call's wall, launches on ``counters``
+    and path (lambdas, betas, intercepts) on the host; each state passes
+    ``check_state`` and is then let go (it holds its screen block)."""
+
+    def __init__(self, ad, what, counters):
+        self._ad, self._what, self._counters = ad, what, counters
+        self._real = ad.cv.grpnet
+        self.calls = []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        def wrapper(*args, **kw):
+            before = {k: c[k] for c in self._counters for k in c}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = self._real(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if st.error:
+                fail(f"{self._what}: a fit's error {st.error!r}")
+            audit(self._ad, f"{self._what} fit {len(self.calls)}", st)
+            self.calls.append(dict(
+                wall=wall, lmdas=np.asarray(st.lmdas),
+                counts={k: c[k] - before[k] for c in self._counters
+                        for k in c},
+                betas=st.betas.copy(), intercepts=np.asarray(st.intercepts)))
+            return st
+
+        self._ad.cv.grpnet = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self._ad.cv.grpnet = self._real
+        return False
+
+
+def fold_loss_rows(family, y, eta):
+    """The loss of each validation row (weights equal), float64: the
+    gaussian's -y eta + eta^2 / 2, the logistic's log(1 + e^eta) - y eta."""
+    import torch
+
+    if family == "gaussian":
+        return -y * eta + 0.5 * eta * eta
+    return torch.nn.functional.softplus(eta) - y * eta
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def cv_cell(ad, card, what, Xm, glm, counters, cols, y, family, kkt, **kw):
+    """V1-V4: ``cv_grpnet`` with ``CV_FOLDS`` folds and seed 0, run twice
+    (the two runs' losses bit-equal), then ``CVGrpnetResult.fit``.  Each
+    fold's losses are held against a float64 recomputation from that
+    fold's coefficients on its validation rows (``cols`` gives columns in
+    float64 on the card): within ``CV_LOSS_BAR`` of max(|loss|, scale),
+    the scale that of the null model's loss (0.5 mean y^2, or log 2);
+    ``kkt(state)`` checks the refit.  Returns the launches of the first
+    run and the refit."""
+    import numpy as np
+    import torch
+
+    n = Xm.rows()
+    with GrpnetCalls(ad, what, counters) as rec:
+        wall_cv, res = timed(lambda: ad.cv_grpnet(
+            Xm, glm, n_folds=CV_FOLDS, seed=0, **kw))
+        n_cv = len(rec.calls)
+        res2 = ad.cv_grpnet(Xm, glm, n_folds=CV_FOLDS, seed=0, **kw)
+        n_two = len(rec.calls)
+        wall_fit, refit = timed(lambda: res.fit(
+            Xm, glm, n_folds=CV_FOLDS, seed=0, **kw))
+    calls, fit_calls = rec.calls[:n_cv], rec.calls[n_two:]
+    if n_cv != CV_FOLDS + 1 or len(fit_calls) != 2:
+        fail(f"{what}: {n_cv} fits in cv_grpnet, {len(fit_calls)} in its "
+             "refit")
+    if not np.array_equal(res.losses, res2.losses):
+        fail(f"{what}: two runs' fold losses differ")
+    L = len(res.lmdas)
+    y64 = torch.as_tensor(np.asarray(y, np.float64), device=DEV)
+    scale = (0.5 * float(torch.mean(y64 * y64)) if family == "gaussian"
+             else float(np.log(2.0)))
+    worst = 0.0
+    for k, val in enumerate(ad.cv._fold_assignments(n, CV_FOLDS, 0)):
+        c = calls[1 + k]
+        B = c["betas"].tocsr()
+        used = np.unique(B.indices)
+        vi = torch.as_tensor(val, device=DEV)
+        eta = torch.as_tensor(c["intercepts"], device=DEV)[None, :] \
+            .double().expand(len(val), -1)
+        if used.size:
+            Bu = torch.as_tensor(B[:, used].toarray().T, device=DEV).double()
+            eta = eta + cols(used)[vi] @ Bu
+        ref = fold_loss_rows(family, y64[vi][:, None], eta).mean(0)
+        ref = ref.cpu().numpy()
+        got = res.losses[k, :len(ref)]
+        err = np.abs(got - ref) / np.maximum(np.abs(ref), scale)
+        worst = max(worst, float(err.max()))
+    if not worst <= CV_LOSS_BAR:
+        fail(f"{what}: fold losses {worst:.2e} off float64 numpy")
+    if refit.error or len(refit.lmdas) != kw.get("lmda_path_size", 100):
+        fail(f"{what}: refit error {refit.error!r}, {len(refit.lmdas)} "
+             "lambdas")
+    lm_star = float(res.lmdas[res.best_idx])
+    if abs(refit.lmdas[-1] / lm_star - 1) > 1e-10:
+        fail(f"{what}: the refit ends at {refit.lmdas[-1]}, not {lm_star}")
+    kkt_r = kkt(refit)
+    counts = {k: sum(c["counts"][k] for c in calls + fit_calls)
+              for k in calls[0]["counts"]}
+    for key in ("pin_lasso_solve", "pin_lasso_solve_rows",
+                "pin_group_solve", "snp_mul"):
+        if key in counts and counts[key] and not any(
+                c["counts"].get(key) for c in calls[1:]):
+            fail(f"{what}: no fold launched {key}")
+    phase(what, f"cv_grpnet, {CV_FOLDS} folds, seed 0, {L} lambdas: wall "
+          f"{wall_cv:.3f} s (dry fit {calls[0]['wall']:.3f} s, folds "
+          f"{[round(c['wall'], 3) for c in calls[1:]]} s); refit "
+          f"{wall_fit:.3f} s (dry fit {fit_calls[0]['wall']:.3f}, path "
+          f"{fit_calls[1]['wall']:.3f} s, {len(refit.lmdas)} lambdas to "
+          f"best_idx {res.best_idx}, lambda {lm_star:.4e}); launches a fold "
+          f"{[nonzero(c['counts']) for c in calls[1:]]}, the refit's path "
+          f"{nonzero(fit_calls[1]['counts'])}; fold losses against float64 "
+          f"numpy on the validation rows {worst:.2e} of max(|loss|, "
+          f"{scale:.3f}) (bar {CV_LOSS_BAR:.0e}); the second run's losses "
+          f"bit-equal; the refit's worst KKT {kkt_r:.2e} lambda | {card}")
+    return counts
+
+
+def pin_naive_cell(ad, card, what, counters, key, Xm, y, ref, **kw):
+    """V5: ``gaussian_pin_naive`` on the last screen of the fit ``ref``
+    (screen_set, lmdas, betas) over its lambdas: ``key`` must launch, and
+    beta at each lambda within ``V_BETA_BAR`` of max |beta| of the fit's."""
+    import numpy as np
+
+    zero_counts(*counters)
+    wall, st = timed(lambda: ad.state.gaussian_pin_naive(
+        X=Xm, y=y, screen_set=ref.screen_set, lmda_path=ref.lmdas,
+        **kw).solve())
+    counts = {k: c[k] for c in counters for k in c}
+    if st.error or counts[key] <= 0 or len(st.lmdas) != len(ref.lmdas):
+        fail(f"{what}: error {st.error!r}, {len(st.lmdas)} lambdas, "
+             f"launches {counts}")
+    audit(ad, what, st)
+    gap = pin_gap(what, st, ref)
+    phase("pin-states", f"{what}: gaussian_pin_naive on the fit's last "
+          f"screen ({len(ref.screen_set)} groups) over its "
+          f"{len(ref.lmdas)} lambdas: wall {wall:.3f} s, launches "
+          f"{nonzero(counts)}, beta {gap:.2e} of max |beta| from the fit's "
+          f"(bar {V_BETA_BAR:.0e}) | {card}")
+    return counts
+
+
+def pin_gap(what, st, ref):
+    import numpy as np
+
+    if not np.array_equal(np.asarray(st.lmdas), np.asarray(ref.lmdas)):
+        fail(f"{what}: lambdas differ from the fit's")
+    B = ref.betas.toarray()
+    gap = float(np.abs(st.betas.toarray() - B).max() / np.abs(B).max())
+    if not gap <= V_BETA_BAR:
+        fail(f"{what}: beta {gap:.2e} of max |beta| from the fit's")
+    return gap
+
+
+def pin_cov_cell(ad, card, counters, X, y, ref):
+    """V5: ``gaussian_pin_cov`` on C1's A = X^T X / n (formed on the card)
+    and v = X^T y / n, on phase 5's last screen over its lambdas (K1),
+    against phase 5's fit."""
+    import numpy as np
+    import torch
+
+    n = X.shape[0]
+    Xd = torch.as_tensor(X, device=DEV)
+    A = ad.matrix.eager_cov(Xd * (1.0 / np.sqrt(n)))
+    v = Xd.T @ torch.as_tensor(y, device=DEV) / n
+    zero_counts(*counters)
+    wall, st = timed(lambda: ad.state.gaussian_pin_cov(
+        A=A, v=v, screen_set=ref.screen_set, lmda_path=ref.lmdas).solve())
+    counts = {k: c[k] for c in counters for k in c}
+    if counts["pin_lasso_solve"] <= 0:
+        fail(f"V5 pin cov: launches {counts}")
+    audit(ad, "V5 gaussian_pin_cov", st)
+    gap = pin_gap("V5 pin cov", st, ref)
+    phase("pin-states", f"gaussian_pin_cov on C1's A, phase 5's last screen "
+          f"({len(ref.screen_set)} columns) over its {len(ref.lmdas)} "
+          f"lambdas: wall {wall:.3f} s, launches {nonzero(counts)}, beta "
+          f"{gap:.2e} of max |beta| from phase 5's fit (bar "
+          f"{V_BETA_BAR:.0e}) | {card}")
+    del A, Xd
+    return counts
+
+
+def diagnostics_phase(ad, card, _build, Xm, X, y, state, kkt5, kw):
+    """V6: ``diagnostic(state)`` on phase 5's fit: ``predict`` against
+    numpy float64 ``X B^T``, the zero groups' ``gradient_scores`` within
+    lambda (1 + 1e-2) beside phase 5's KKT; ``save_state`` of the headline
+    fit stopped at its 50th lambda (an ``exit_cond``), ``load_warm_start``
+    and the rest of the path resumed on the card with
+    ``check_state=True``, against the unbroken fit."""
+    import numpy as np
+    import torch
+
+    d = ad.diagnostic.diagnostic(state)
+    wall_p, etas = timed(d.predict)
+    B = state.betas.toarray().astype(np.float64)
+    used = np.flatnonzero(np.any(B != 0, axis=0))
+    ref = np.asarray(X[:, used], np.float64) @ B[:, used].T     # (n, L)
+    p_err = float(np.abs(etas.T - ref).max() / np.abs(ref).max())
+    if not p_err <= 1e-5:
+        fail(f"V6 predict: {p_err:.2e} of max |eta| from numpy float64")
+    glm = ad.glm.gaussian(y).to(torch.device(DEV))
+    wall_s, scores = timed(lambda: d.gradient_scores(d.gradient_norms(
+        ad.diagnostic.gradients(Xm, ad.diagnostic.residuals(glm, etas)))))
+    lm = np.asarray(state.lmdas)
+    zero = np.where(B == 0, scores, -np.inf).max(1) / lm - 1
+    worst0 = float(zero.max())
+    if not worst0 <= 1e-2:
+        fail(f"V6 gradient_scores: a zero group at lambda (1 + {worst0:.2e})")
+    phase("diagnostic", f"phase 5's fit: predict ({len(lm)} x {X.shape[0]})"
+          f" {wall_p:.3f} s, {p_err:.2e} of max |eta| from numpy float64 "
+          f"X B^T (bar 1e-5); residuals, gradients, norms and scores "
+          f"{wall_s:.3f} s: zero groups' scores at most lambda (1 + "
+          f"{worst0:.2e}) (bar 1e-2; phase 5's worst KKT {kkt5:.2e} "
+          f"lambda) | {card}")
+
+    f = _build.BUILD_DIR / "chip_smoke_v6.npz"
+    f.parent.mkdir(parents=True, exist_ok=True)
+    wall_h, head = timed(lambda: ad.grpnet(
+        Xm, ad.glm.gaussian(y), exit_cond=lambda s: len(s.lmdas) >= 50,
+        **kw))
+    if head.error or not np.array_equal(head.lmdas, lm[:50]):
+        fail(f"V6 head: error {head.error!r}, {len(head.lmdas)} lambdas, "
+             "not phase 5's first 50")
+    audit(ad, "V6 head (exit_cond at 50)", head)
+    ad.state.save_state(head, str(f))
+    size = f.stat().st_size
+    ws = ad.state.load_warm_start(str(f), device=DEV)
+    f.unlink()
+    rest = dict(kw, lmda_path=lm[50:], warm_start=ws, check_state=True)
+    rest.pop("lmda_path_size", None)
+    wall_r, tail = timed(lambda: ad.grpnet(Xm, ad.glm.gaussian(y), **rest))
+    if tail.error:
+        fail(f"V6 resumed fit: error {tail.error!r}")
+    audit(ad, "V6 resumed fit", tail)
+    tail_ref = types.SimpleNamespace(lmdas=lm[50:], betas=state.betas[50:])
+    gap = pin_gap("V6 resumed fit", tail, tail_ref)
+    phase("state", f"headline stopped at lambda 50 by exit_cond ({wall_h:.3f}"
+          f" s), save_state {size} bytes, load_warm_start, the other "
+          f"{len(lm) - 50} lambdas resumed on the card with "
+          f"check_state=True ({wall_r:.3f} s): lambdas equal, beta "
+          f"{gap:.2e} of max |beta| from phase 5's unbroken fit (bar "
+          f"{V_BETA_BAR:.0e}) | {card}")
+
+
 def main():
     try:
         import numpy as np
@@ -4628,6 +4942,7 @@ def main():
         fail(f"headline fit: error {state.error!r}, {len(state.lmdas)} "
              "lambdas")
     kkt5 = kkt_check("headline fit", X, y, state)
+    audit(ad, "headline (5)", state)
     peak_S = int(max(state.screen_sizes))
     phase("headline", f"n=40000 p=2000 f32 100 lambdas: wall {wall_s:.3f} s "
           f"(warm-up {warm_s:.3f} s), peak screen {peak_S}, launches "
@@ -4682,6 +4997,11 @@ def main():
                                  st5g_b.betas.toarray()))
     if not same5g:
         fail("grouped headline: two timed fits differ (beta or lambdas)")
+    audit(ad, "grouped headline (5b)", st5g)
+    # V5 fits a pin state on its last screen
+    ref5g = types.SimpleNamespace(screen_set=st5g.screen_set.copy(),
+                                  lmdas=np.asarray(st5g.lmdas).copy(),
+                                  betas=st5g.betas.copy())
     G5, B5 = dense_grad(X, y, st5g)
     kkt5g = group_kkt_check("grouped headline", G5, B5, st5g.lmdas, groups5,
                             np.full(500, 4), np.full(500, 2.0), 1.0)
@@ -4786,8 +5106,8 @@ def main():
     # 7b. past 1024, float64: K2 on the card, its twin on the CPU.  The
     # Grams and gradients come from cuBLAS and from CPU BLAS, and the
     # filtered sweep picks its movers by exact comparisons (ROADMAP.md
-    # section 3 item 6), so two fits that each meet tol part where a
-    # last-bit difference flips a mover.  The witness that the gap is the
+    # queue 3, "Knife edges, not faults"), so two fits that each meet tol
+    # part where a last-bit difference flips a mover.  The witness that the gap is the
     # inputs' and not the kernel's: every K2 solve of the card's fit, run
     # by the CPU twin on copies of its inputs (the card's Gram and
     # gradient), gives the kernel's bits.  Bars: lambda 1e-10 relative at
@@ -4881,7 +5201,55 @@ def main():
     torch.cuda.empty_cache()
     glm_counts.update(relu_phase(ad, card, pins))
     struct_s = time.perf_counter() - t_struct
-    del X, y, signal5, state
+    torch.cuda.empty_cache()
+
+    # V1-V3, V5, V6: the model-selection layer on the headline's problems
+    # (V4 after S1b, on phase 9's panel)
+    t_v = time.perf_counter()
+    Xv = ad.matrix.dense(X, device="cuda")
+    p5 = X.shape[1]
+    v_counts = {"V1": cv_cell(
+        ad, card, "cv-headline", Xv, ad.glm.gaussian(y), pins,
+        dense_cols(X), y, "gaussian",
+        lambda s: kkt_check("V1 refit", X, y, s), **kw)}
+    y1 = case_control(standardized(signal5), seed=21)
+    v_counts["V2"] = cv_cell(
+        ad, card, "cv-logistic", Xv, ad.glm.binomial(y1), pins,
+        dense_cols(X), y1, "logistic",
+        lambda s: glm_dense_kkt("V2 refit", X, s, glm_resid("logit", y1),
+                                *singletons(p5))[0],
+        lmda_path_size=100, min_ratio=1e-2, early_exit=False, device="cuda")
+    v_counts["V3"] = cv_cell(
+        ad, card, "cv-grouped", Xv, ad.glm.gaussian(y), pins,
+        dense_cols(X), y, "gaussian",
+        lambda s: group_kkt_check("V3 refit", *dense_grad(X, y, s), s.lmdas,
+                                  groups5, np.full(500, 4),
+                                  np.full(500, 2.0), 1.0), **kw5g)
+    torch.cuda.empty_cache()
+    v_counts["V5-headline"] = pin_naive_cell(
+        ad, card, "V5 headline (K1)", pins, "pin_lasso_solve", Xv, y, state,
+        intercept=False)
+    Xv6 = ad.matrix.dense(X6, device="cuda")
+    wall6t, ref6 = timed(lambda: ad.grpnet(
+        Xv6, ad.glm.gaussian(y6), **dict(kw6, tol=V5_BIG_S_TOL)))
+    if ref6.error or len(ref6.lmdas) != len(state6.lmdas):
+        fail(f"V5 big-S fit at tol {V5_BIG_S_TOL}: error {ref6.error!r}")
+    audit(ad, "V5 big-S fit", ref6)
+    phase("pin-states", f"phase 6's problem refitted at tol "
+          f"{V5_BIG_S_TOL:.0e}: wall {wall6t:.3f} s, peak screen "
+          f"{max(ref6.screen_sizes)} | {card}")
+    v_counts["V5-big-S"] = pin_naive_cell(
+        ad, card, f"V5 big-S (K2, tol {V5_BIG_S_TOL:.0e})", pins,
+        "pin_lasso_solve_rows", Xv6, y6, ref6, intercept=False,
+        tol=V5_BIG_S_TOL)
+    del Xv6, ref6
+    v_counts["V5-grouped"] = pin_naive_cell(
+        ad, card, "V5 grouped headline (K6)", pins, "pin_group_solve", Xv, y,
+        ref5g, groups=groups5, intercept=False)
+    v_counts["V5-cov"] = pin_cov_cell(ad, card, pins, X, y, state)
+    diagnostics_phase(ad, card, _build, Xv, X, y, state, kkt5, kw)
+    v_s = time.perf_counter() - t_v
+    del Xv, X, y, signal5, state
     torch.cuda.empty_cache()
 
     # 8. K3 and K4 against their twins
@@ -4960,6 +5328,16 @@ def main():
         ad, card, (tk.launches, sk.launches, pg.launches), Xm9, y9)
     struct_s += time.perf_counter() - t_struct
     phase("structured", f"S0-S6 took {struct_s:.1f} s in all")
+    # V4: the GWAS CV on the same panel in device memory (K3, K1)
+    t_v = time.perf_counter()
+    v_counts["V4"] = cv_cell(
+        ad, card, "cv-gwas", Xm9, ad.glm.gaussian(y9),
+        (tk.launches, sk.launches), snp_cols(io9), y9, "gaussian",
+        lambda s: snp_kkt_check("V4 refit", Xm9, y9, s), **kw9)
+    v_s += time.perf_counter() - t_v
+    phase("state", f"check_state passed on {len(AUDITED)} states: "
+          f"{sorted({w.split(' fit ')[0] for w, _ in AUDITED})} | {card}")
+    phase("model-selection", f"V1-V6 took {v_s:.1f} s in all")
     # io9, y9 and st9 stay for phase 13
     del Xm9
     torch.cuda.empty_cache()
@@ -5340,7 +5718,7 @@ def main():
     paths = {"headline": counts_5, "headline-grouped": counts5g,
              "big-S": counts_6, "gwas": counts9, "phased": counts10,
              "phased-grouped": counts10g, "north-star": counts14,
-             **glm_counts}
+             **glm_counts, **v_counts}
     for k in kernels["kernels"]:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in paths.items()

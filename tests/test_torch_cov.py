@@ -184,7 +184,7 @@ def test_eager_cov_and_dtypes(problem):
 def test_refusals(problem):
     """The naive ``block_diag`` and ``sparse`` (the default method) build
     and match their dense equivalents; what stays refused names its
-    ROADMAP item."""
+    ROADMAP item; ``check_state=True`` audits the finished state."""
     bd = ta.matrix.block_diag(problem["blocks"], device="cpu")
     D = np.zeros((P, P))
     D[:12, :12], D[12:, 12:] = problem["blocks"]
@@ -200,9 +200,13 @@ def test_refusals(problem):
         ta.gaussian_cov(problem["A"], problem["v"],
                         constraints=[None] * (P - 1) + ["a constraint"],
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="model-selection"):
-        ta.gaussian_cov(problem["A"], problem["v"], check_state=True,
-                        device="cpu")
+    checked = ta.gaussian_cov(problem["A"], problem["v"], check_state=True,
+                              device="cpu")
+    assert checked.error == "" and ta.state.check_state(checked) == []
+    np.testing.assert_array_equal(
+        checked.betas.toarray(),
+        ta.gaussian_cov(problem["A"], problem["v"], device="cpu")
+        .betas.toarray())
     with pytest.raises(TypeError, match="covariance matrix"):
         ta.gaussian_cov(ta.matrix.dense(problem["X"], device="cpu"),
                         problem["v"])

@@ -259,8 +259,8 @@ def test_dense_matrix_products_match_numpy():
 def test_grpnet_accepts_the_jax_keywords():
     """``n_threads``, ``irls_*`` and ``newton_*`` are accepted and change
     nothing here (a gaussian fit in covariance form runs no IRLS, and
-    groups of size 1 take no Newton step); ``check_state=True`` is not
-    ported and raises."""
+    groups of size 1 take no Newton step); ``check_state=True`` audits the
+    finished state, which passes, and changes nothing either."""
     rng = np.random.default_rng(1)
     X = rng.standard_normal((30, 5))
     y = X[:, 0] + 0.1 * rng.standard_normal(30)
@@ -271,8 +271,9 @@ def test_grpnet_accepts_the_jax_keywords():
                   check_state=False, **kw)
     assert a.error == b.error == ""
     np.testing.assert_array_equal(a.betas.toarray(), b.betas.toarray())
-    with pytest.raises(NotImplementedError, match="model-selection layer"):
-        ta.grpnet(X, ta.glm.gaussian(y), check_state=True, **kw)
+    c = ta.grpnet(X, ta.glm.gaussian(y), check_state=True, **kw)
+    assert c.error == "" and ta.state.check_state(c) == []
+    np.testing.assert_array_equal(a.betas.toarray(), c.betas.toarray())
 
 
 def test_dense_copy_and_n_threads():

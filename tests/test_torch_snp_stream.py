@@ -348,3 +348,46 @@ def test_streamed_factory(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ta.matrix.snp_unphased(tio, streaming=True, device="cuda")
+
+
+_WRAPPERS = {
+    "standardize": lambda pkg, m: pkg.matrix.standardize(m),
+    "column_subset": lambda pkg, m: pkg.matrix.subset(m, np.arange(10),
+                                                      axis=1),
+    "row_subset": lambda pkg, m: pkg.matrix.subset(m, np.arange(30), axis=0),
+    "row_concatenate": lambda pkg, m: pkg.matrix.concatenate([m, m], axis=0),
+    "block_diag": lambda pkg, m: pkg.matrix.block_diag([m, m]),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(_WRAPPERS))
+def test_wrapped_streamed_panel_is_refused_as_in_jax(tmp_path, wrapper):
+    """``standardize``, ``subset`` (either axis), ``concatenate(axis=0)``
+    and the naive ``block_diag`` of a streamed panel report
+    ``is_streaming``, and ``grpnet`` refuses them up front, as the JAX
+    package does (its ``mul_spec``); a column concatenation and
+    ``kronecker_eye`` of the panel keep fitting."""
+    jio, tio, _ = _io(tmp_path, 60, 40, seed=17)
+    jm, tm = _streamed(jio, tio)
+    jw, tw = _WRAPPERS[wrapper](ja, jm), _WRAPPERS[wrapper](ta, tm)
+    assert tw.is_streaming
+    y = np.random.default_rng(3).standard_normal(tw.rows())
+    with pytest.raises(NotImplementedError):
+        ja.grpnet(jw, ja.glm.gaussian(y), lmda_path_size=3)
+    with pytest.raises(NotImplementedError,
+                       match=f"{type(tw).__name__} over a host-streamed"):
+        ta.grpnet(tw, ta.glm.gaussian(y), lmda_path_size=3)
+    # inside a column concatenation, the wrapper is still found
+    cc = ta.matrix.concatenate([tw, tw])
+    with pytest.raises(NotImplementedError, match="bare panel"):
+        ta.grpnet(cc, ta.glm.gaussian(np.zeros(cc.rows())),
+                  lmda_path_size=3)
+    ok = ta.matrix.concatenate([tm, ta.matrix.dense(
+        np.ones((60, 1)), device="cpu")])
+    assert ok.is_streaming
+    ta.matrix.wrappers.refuse_wrapped_stream(ok)
+    ta.matrix.wrappers.refuse_wrapped_stream(ta.matrix.kronecker_eye(ok, 2))
+    s = ta.grpnet(ok, ta.glm.gaussian(np.random.default_rng(4)
+                                      .standard_normal(60)),
+                  lmda_path_size=3)
+    assert s.error == "" and len(s.benchmark["kkt"]) > 0
